@@ -7,26 +7,35 @@ Drives `ltesniffer_tpu_torch` — the PyTorch port of the JAX package
 `ltesniffer_tpu` — through its main path on the card and fails (non-zero
 exit) if any phase fails:
 
-1. card and build: the card's name and power limit; build the hand-written
-   CUDA BCJR kernel (kernels/csrc/bcjr.cu) with nvcc.
-2. kernel vs plain twin: at the K values of the loaded cell's and the
-   golden scenario's grants, n_iter 2 and 12, with and without a HARQ
-   prior, the decoded bits through the kernel on the card equal those of
-   the plain twin (on the host); one pass of the kernel and of the twin on
-   the same card tensors agrees within 1e-4 * max(1, |x|); times and the
-   memory bound of one pass at the loaded cell's shapes.
+1. card and build: the card's name and power limit; build the two
+   hand-written CUDA kernels with nvcc, side by side: the fused
+   whole-decode turbo kernel (kernels/csrc/turbo_decode.cu, the main
+   path's decoder) and the per-pass BCJR kernel (kernels/csrc/bcjr.cu,
+   the earlier design); their build times and ptxas registers/spills.
+2. kernels vs plain version: at the K values of the loaded cell's and the
+   golden scenario's grants and K = 40 and 6144, n_iter 2 and 12, with and
+   without a HARQ prior, the bits decided on the card by the fused kernel
+   and by the lane decoder over the pass kernel equal those of the plain
+   version (the lane decoder over the plain twin, on the host), and the
+   fused kernel's LLRs are compared too; one pass of the pass kernel and
+   of the twin on the same card tensors agrees within 1e-4 * max(1, |x|).
+   Times, in turns in one call, of a whole decode at the loaded cell's
+   main shape (fused, lanes, lanes, fused; then the plain version) and of
+   one pass, beside their bounds.
 3. golden: the golden scenario (tests/golden/dl_mode.pcap), built by the
    port's own generator, run on the card; the pcap's sha256 must equal.
 4. loaded cell at full width (20 MHz, 512 subframes, batch 256) through
    `LTESnifferCore.run_packed` on the card, held against the JAX
    package's CPU run (ltesniffer_tpu_torch/testing/dl_loaded_expected.json):
    equal accepted-DCI list, PDSCH CRC-ok sets differing in <= 0.5 % of
-   grants; the BCJR kernel's launch count in this run must be > 0.
+   grants; in this run the fused kernel must have launched and the pass
+   kernel not.
 5. the `kernels` JSON line, then the result line.
 
 Imports torch, numpy, the standard library and the port only — no JAX.
 Writes only under a temporary directory and ltesniffer_tpu_torch/_build/.
 """
+import concurrent.futures
 import hashlib
 import json
 import os
@@ -44,6 +53,9 @@ F32_OPS_PER_S = 67e12            # H100 SXM float32 outside tensor cores
 BCJR_TOL = 1e-4                  # |kernel - twin| <= 1e-4 * max(1, |twin|)
 CRC_DIFF_MAX = 0.005             # share of grants whose CRC-ok may differ
 BCJR_REPLACES = "ltesniffer_tpu/kernels/turbo_pallas.py:125"
+# the fused kernel replaces the same TPU kernel together with its caller
+# ltesniffer_tpu/kernels/turbo.py:255 (_make_decoder_pallas)
+TURBO_REPLACES = "ltesniffer_tpu/kernels/turbo_pallas.py:125"
 
 
 def log(msg: str):
@@ -168,34 +180,45 @@ def bcjr_bound_ms(W: int, L: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_bcjr(ks: dict, device, rng) -> dict:
-    """Kernel vs twin: decoded bits (per K, n_iter, prior), one pass at
-    the main-path shape of each K; returns the kernel line's numbers."""
+def check_decoders(ks: dict, device, rng) -> dict:
+    """Fused kernel and lane decoder over the pass kernel, both on the card,
+    vs the plain version on the host: decided bits (per K, n_iter, prior),
+    the fused kernel's LLRs; one pass of the pass kernel at the main-path
+    shape of each K.  Returns each kernel's max |error|."""
     import numpy as np
     import torch
-    from ltesniffer_tpu_torch.kernels import bcjr, turbo
-    max_err = 0.0
+    from ltesniffer_tpu_torch.kernels import bcjr, turbo, turbo_decode
+    err = {"bcjr": 0.0, "turbo_decode": 0.0}
     for K in sorted(ks):
         B = max(8, min(ks[K], 256))
         sent, llr, prior = turbo_llrs(K, B, rng)
         for n_iter in (2, 12):
             for with_prior in (False, True):
                 d = llr + prior if with_prior else llr
-                dec = turbo.make_decoder(K, n_iter)
-                b_card, _ = dec(torch.from_numpy(d).to(device))
-                b_host, _ = dec(torch.from_numpy(d))
-                b_card = b_card.cpu().numpy()
-                if not np.array_equal(b_card, b_host.numpy()):
-                    n = int((b_card != b_host.numpy()).sum())
-                    raise AssertionError(
-                        f"K={K} n_iter={n_iter} prior={with_prior}: "
-                        f"{n} decided bits differ from the plain twin")
-                ber = float((b_card != sent).mean())
+                b_host, l_host = turbo.make_decoder(K, n_iter)(
+                    torch.from_numpy(d))
+                b_host = b_host.numpy()
+                d_card = torch.from_numpy(d).to(device)
+                b_fused, l_fused = turbo.make_decoder(K, n_iter)(d_card)
+                b_lanes, _ = turbo.make_decoder_lanes(K, n_iter)(d_card)
+                for name, b in (("fused kernel", b_fused),
+                                ("lane decoder + pass kernel", b_lanes)):
+                    b = b.cpu().numpy()
+                    if not np.array_equal(b, b_host):
+                        n = int((b != b_host).sum())
+                        raise AssertionError(
+                            f"K={K} n_iter={n_iter} prior={with_prior}: "
+                            f"{n} bits of the {name} differ from the plain "
+                            "version")
+                e = float((l_fused.cpu() - l_host).abs().max())
+                err["turbo_decode"] = max(err["turbo_decode"], e)
+                ber = float((b_host != sent).mean())
                 log(f"  K={K:5d} B={B:4d} n_iter={n_iter:2d} "
-                    f"prior={int(with_prior)}: bits equal twin; "
-                    f"BER vs sent {ber:.2e}")
+                    f"prior={int(with_prior)}: fused and lanes bits equal "
+                    f"plain; fused max |LLR err| {e:.3e}; BER vs sent "
+                    f"{ber:.2e}")
         # one pass on the card: kernel vs twin on the same card tensors
-        W = turbo._window_len(K)
+        W = turbo_decode.window_len(K)
         L = turbo._lane_consts(K, B)["L"]
         g = torch.Generator(device="cpu").manual_seed(K)
         ins = [torch.randn((W, L), generator=g) * 4.0 for _ in range(3)]
@@ -204,21 +227,56 @@ def check_bcjr(ks: dict, device, rng) -> dict:
         got = bcjr.bcjr_cuda(*ins)
         want = bcjr.bcjr_plain(*ins)
         for name, a, b in zip(("ext", "a_end", "b_start"), got, want):
-            err = (a - b).abs()
+            e = (a - b).abs()
             lim = BCJR_TOL * torch.clamp(b.abs(), min=1.0)
-            if bool((err > lim).any()):
+            if bool((e > lim).any()):
                 raise AssertionError(f"K={K} pass {name}: max |err| "
-                                     f"{float(err.max()):.3e} over tol")
-            max_err = max(max_err, float(err.max()))
-    return {"max_abs_err": max_err}
+                                     f"{float(e.max()):.3e} over tol")
+            err["bcjr"] = max(err["bcjr"], float(e.max()))
+    return err
+
+
+def fused_bound_ms(K: int, B: int, n_iter: int):
+    """Least time for one decode on the card: the larger of bytes over the
+    memory rate and float32 operations over the float32 rate."""
+    from ltesniffer_tpu_torch.kernels import turbo_decode
+    t_bytes = turbo_decode.bytes_moved(K, B) / HBM_BYTES_PER_S * 1e3
+    t_ops = turbo_decode.ops(K, B, n_iter) / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_decoders(K: int, B: int, device, rng) -> dict:
+    """Whole-decode times at (K, B), n_iter 2 and 12: the fused kernel and
+    the earlier design (lane decoder over the pass kernel) in turns (fused,
+    lanes, lanes, fused), the plain version on the card, the bound."""
+    import torch
+    from ltesniffer_tpu_torch.kernels import bcjr, turbo
+    _, llr, _ = turbo_llrs(K, B, rng)
+    d = torch.from_numpy(llr).to(device)
+    out = {}
+    for n_iter in (2, 12):
+        fused = turbo.make_decoder(K, n_iter)
+        lanes = turbo.make_decoder_lanes(K, n_iter)
+        plain = turbo.make_decoder_lanes(K, n_iter, bcjr.bcjr_plain)
+        t_f1 = time_cuda(lambda: fused(d), n=20)
+        t_l1 = time_cuda(lambda: lanes(d), n=5)
+        t_l2 = time_cuda(lambda: lanes(d), n=5)
+        t_f2 = time_cuda(lambda: fused(d), n=20)
+        t_p = time_cuda(lambda: plain(d), n=2)
+        bound, by = fused_bound_ms(K, B, n_iter)
+        out[n_iter] = dict(ms=min(t_f1, t_f2), ms_turns=[t_f1, t_f2],
+                           lanes_ms=min(t_l1, t_l2),
+                           lanes_turns=[t_l1, t_l2], plain_ms=t_p,
+                           bound_ms=bound, bound_by=by)
+    return out
 
 
 def time_bcjr(K: int, B: int, device) -> dict:
     """Kernel, twin and bound times of one pass at the shape the main
     path gives K with B code blocks in one call."""
     import torch
-    from ltesniffer_tpu_torch.kernels import bcjr, turbo
-    W = turbo._window_len(K)
+    from ltesniffer_tpu_torch.kernels import bcjr, turbo, turbo_decode
+    W = turbo_decode.window_len(K)
     L = turbo._lane_consts(K, B)["L"]
     g = torch.Generator(device="cpu").manual_seed(1)
     ins = [(torch.randn((W, L), generator=g) * 4.0).to(device)
@@ -307,6 +365,10 @@ def profile_loaded(device, words, scales, tmp: str):
             f"({100 * busy / (1e3 * dt):.1f} % of wall)")
         for ms, n, name in rows[:12]:
             log(f"    {ms:9.2f} ms {n:7d}x  {name[:90]}")
+        for ms, n, name in rows:
+            if "turbo_decode_kernel" in name or "bcjr_kernel" in name:
+                log(f"  port kernel {name[:60]}: {ms:.3f} ms over {n} "
+                    f"launches ({100 * ms / busy:.2f} % of device time)")
     for line in prof.pretty().splitlines():
         log(f"  host span {line}")
 
@@ -345,7 +407,7 @@ def main() -> int:
               "only", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from ltesniffer_tpu_torch.kernels import bcjr
+    from ltesniffer_tpu_torch.kernels import bcjr, nvcc_build, turbo_decode
     from ltesniffer_tpu_torch.testing import loaded_cell
     device = "cuda"
     kind = torch.cuda.get_device_name(0)
@@ -356,14 +418,18 @@ def main() -> int:
             log(card)
             log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
                 f"device {kind}")
-            t = bcjr.build()
-            log(f"  nvcc build of kernels/csrc/bcjr.cu: {t:.2f} s")
-            ptxas = [f for f in os.listdir(bcjr.BUILD_DIR)
-                     if f.endswith(".ptxas.txt")]
-            for f in ptxas:
-                for line in open(os.path.join(bcjr.BUILD_DIR, f)):
-                    if "registers" in line or "spill" in line:
-                        log(f"  ptxas: {line.strip()}")
+            # one nvcc for each source, both started together
+            with concurrent.futures.ThreadPoolExecutor(2) as ex:
+                builds = {m.__name__.rsplit(".", 1)[1]: ex.submit(m.build)
+                          for m in (turbo_decode, bcjr)}
+            for name, f in builds.items():
+                log(f"  nvcc build of kernels/csrc/{name}.cu: "
+                    f"{f.result():.2f} s")
+                sass = nvcc_build.sass_counts(name)
+                for fn, regs, st, ld in nvcc_build.ptxas_report(name):
+                    log(f"  ptxas {name}: {regs} registers, {st} bytes "
+                        f"spill stores, {ld} bytes spill loads, "
+                        f"{sass.get(fn, 'n/a')} SASS instructions ({fn})")
         with Phase("scenarios (port generator)"):
             _, _, golden_truth = golden_scenario()
             t0 = time.perf_counter()
@@ -375,47 +441,85 @@ def main() -> int:
                     rec["placed"] != placed:
                 raise AssertionError("expected record does not match the "
                                      "scenario")
-        with Phase("2 BCJR kernel vs plain twin"):
+        with Phase("2 kernels vs plain version"):
             ks_loaded = code_block_sizes(loaded_truth)
             ks = dict(ks_loaded)
             for K, m in code_block_sizes(golden_truth).items():
                 ks.setdefault(K, m)
+            # the smallest block and the largest shared-memory case
+            ks.setdefault(40, 8)
+            ks.setdefault(6144, 8)
             log(f"  K values: {sorted(ks)}")
-            err = check_bcjr(ks, device, rng)
+            err = check_decoders(ks, device, rng)
             # timing at the loaded cell's most common K, with the code
             # blocks one batch of 256 subframes carries
             K_main = max(ks_loaded, key=ks_loaded.get)
             B_main = ks_loaded[K_main] * 256 // loaded_cell.N_SF
+            td = time_decoders(K_main, B_main, device, rng)
+            geo = turbo_decode.launch_geometry(K_main, B_main)
+            for n_iter, t in td.items():
+                log(f"  whole decode at K={K_main}, B={B_main}, n_iter="
+                    f"{n_iter} on {card}: fused kernel {t['ms']:.4f} ms "
+                    f"(turns {t['ms_turns'][0]:.4f}, {t['ms_turns'][1]:.4f})"
+                    f"; lane decoder + pass kernel {t['lanes_ms']:.4f} ms "
+                    f"(turns {t['lanes_turns'][0]:.4f}, "
+                    f"{t['lanes_turns'][1]:.4f}); plain version "
+                    f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+                    f"({t['bound_by']}: max(ops / 67 TFLOP/s, bytes / "
+                    f"3.35 TB/s))")
+            log(f"  fused launch at that shape: {geo['ctas']} CTAs x "
+                f"{geo['threads']} threads ({geo['G']} code blocks of "
+                f"{geo['NW']} windows, W={geo['W']}, S={geo['S']}), "
+                f"{geo['smem']} bytes of shared memory each")
             tm = time_bcjr(K_main, B_main, device)
             log(f"  one pass at K={K_main} (W={tm['W']}, L={tm['L']}) on "
                 f"{card}: kernel {tm['ms']:.4f} ms, plain twin "
                 f"{tm['plain_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
                 f"({tm['bound_by']}: (4W+32)*L*4 B over 3.35 TB/s); no "
-                "single PyTorch call computes a BCJR pass, so there is no "
-                "library time")
+                "single PyTorch call computes a BCJR pass or a turbo "
+                "decode, so there is no library time")
         with Phase("3 golden scenario on the card"):
             run_golden(device, tmp)
         with Phase("4 loaded cell, 20 MHz, 512 subframes, batch 256"):
             bcjr.reset_launches()
+            turbo_decode.reset_launches()
             c, acc, dt = run_loaded(device, words, scales, tmp)
-            launches = bcjr.LAUNCHES["bcjr"]
+            n_fused = turbo_decode.LAUNCHES["turbo_decode"]
+            n_pass = bcjr.LAUNCHES["bcjr"]
             s = c.summary()
             log(f"  summary: subframes {s['subframes']}, dcis {s['dcis']}, "
                 f"pdsch_ok {s['pdsch_ok']}, placed {placed} "
                 f"(pdsch_ok/placed {s['pdsch_ok'] / placed:.4f})")
             log(f"  {loaded_cell.N_SF / dt:.1f} subframes/s on {card} "
                 f"({dt:.2f} s wall, first reading, not a target)")
-            log(f"  bcjr kernel launches in this run: {launches}")
+            log(f"  launches in this run: turbo_decode (fused) {n_fused}, "
+                f"bcjr (pass kernel) {n_pass}")
             compare_loaded(rec, c, acc)
-            if launches <= 0:
-                raise AssertionError("the main path launched no BCJR kernel")
+            if n_fused <= 0:
+                raise AssertionError("the main path launched no fused "
+                                     "turbo kernel")
+            if n_pass != 0:
+                raise AssertionError(f"the main path launched the pass "
+                                     f"kernel {n_pass} times")
         with Phase("4b where the time goes (profiled second pass)"):
             profile_loaded(device, words, scales, tmp)
+        t2, t12 = td[2], td[12]
         line = {"kernels": [{
+            "name": "turbo_decode", "route": "cuda",
+            "source": "ltesniffer_tpu_torch/kernels/csrc/turbo_decode.cu",
+            "replaces": TURBO_REPLACES, "launches": n_fused,
+            "max_abs_err": err["turbo_decode"], "ms": t2["ms"],
+            "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
+            "bound_by": t2["bound_by"], "library_ms": None,
+            "shape": {"K": K_main, "B": B_main, "n_iter": 2},
+            "lanes_ms": t2["lanes_ms"],
+            "n_iter_12": {k: t12[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "lanes_ms")},
+        }, {
             "name": "bcjr", "route": "cuda",
             "source": "ltesniffer_tpu_torch/kernels/csrc/bcjr.cu",
-            "replaces": BCJR_REPLACES, "launches": launches,
-            "max_abs_err": err["max_abs_err"], "ms": tm["ms"],
+            "replaces": BCJR_REPLACES, "launches": n_pass,
+            "max_abs_err": err["bcjr"], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": None}]}
         log(json.dumps(line))

@@ -10,7 +10,7 @@ block x window), the function of the TPU kernel
   ext (W, L) = llr - (apr + l_sys);  a_end (8, L);  b_start (8, L)
 
 On CUDA tensors the wrapper launches `csrc/bcjr.cu` (built with nvcc at
-first use into `ltesniffer_tpu_torch/_build/`, loaded through ctypes) or
+first use into `ltesniffer_tpu_torch/_build/` by `nvcc_build`) or
 raises; on CPU tensors it runs `bcjr_plain`, which forms every sum in the
 kernel's order.  `LAUNCHES["bcjr"]` counts kernel launches.
 """
@@ -18,25 +18,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import subprocess
-import time
 
 import numpy as np
 import torch
 
+from . import nvcc_build
 from .cplx import const
+from .nvcc_build import BUILD_DIR, BUILD_SECONDS, NVCC_FLAGS  # noqa: F401
 
-SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                   "bcjr.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+SRC = os.path.join(nvcc_build.CSRC, "bcjr.cu")
+HEADER = os.path.join(nvcc_build.CSRC, "bcjr_step.cuh")
 
 LAUNCHES = {"bcjr": 0}
-BUILD_SECONDS = {}
 
 
 def reset_launches():
@@ -45,7 +39,8 @@ def reset_launches():
 
 
 # ---------------------------------------------------------------------------
-# trellis tables (also hard-coded in csrc/bcjr.cu; the tests compare them)
+# trellis tables (also hard-coded in csrc/bcjr_step.cuh; the tests compare
+# them)
 # ---------------------------------------------------------------------------
 @functools.lru_cache(maxsize=1)
 def trellis_lanes():
@@ -112,42 +107,12 @@ def bcjr_plain(apr, l_sys, l_par, a0, bK):
 
 
 # ---------------------------------------------------------------------------
-# build + bind (nvcc by hand, plain C ABI, ctypes)
+# build + bind (kernels/nvcc_build.py: nvcc by hand, plain C ABI, ctypes)
 # ---------------------------------------------------------------------------
-def _nvcc() -> str:
-    cands = []
-    if os.environ.get("CUDA_HOME"):
-        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for c in cands:
-        if os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and "
-                       "/usr/local/cuda/bin): cannot build the BCJR kernel")
-
-
 @functools.lru_cache(maxsize=1)
 def _library():
-    """Build csrc/bcjr.cu into _build/ (keyed by source + flags hash) and
-    load it; returns the ctypes function."""
-    src = open(SRC, "rb").read()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    so = os.path.join(BUILD_DIR, f"libbcjr_{tag}.so")
-    if not os.path.exists(so):
-        t0 = time.perf_counter()
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SRC]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
-                               f"{r.stdout}\n{r.stderr}")
-        with open(so + ".ptxas.txt", "w") as f:
-            f.write(r.stderr)
-        os.replace(tmp, so)
-        BUILD_SECONDS["bcjr"] = time.perf_counter() - t0
-    lib = ctypes.CDLL(so)
-    fn = lib.bcjr_launch
+    """Build csrc/bcjr.cu (at first use) and return its ctypes entry."""
+    fn = nvcc_build.load("bcjr", SRC, (HEADER,)).bcjr_launch
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int

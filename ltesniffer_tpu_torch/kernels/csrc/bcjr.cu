@@ -14,7 +14,8 @@
 // W = 32).  The backward recursion is fused with the extrinsic output.
 // Neighbouring threads take neighbouring lanes, so every (W, L) row load
 // and store is coalesced.  The loops are unrolled over W (a template
-// parameter), so the trellis tables below fold into constant indices.
+// parameter), so the trellis tables of bcjr_step.cuh fold into constant
+// indices.
 //
 // Rounding: built with --fmad=false, and every sum is formed in the same
 // order as the plain twin (kernels/bcjr.py:bcjr_plain), so the decided
@@ -25,29 +26,16 @@
 // bytes = (4*W + 32) * L * 4 per pass (about 24 ACS operations per state
 // per step is far below the float32 rate).
 //
-// Left for later: fusing both half-iterations and all iterations into one
-// launch (the QPP interleave between them is then a gather inside the
-// kernel), and keeping the extrinsic in shared memory between passes.
+// The recurrence (trellis tables, sum order) is bcjr_step.cuh, shared with
+// the fused whole-decode kernel turbo_decode.cu, which the main path runs;
+// this per-pass kernel stays as that kernel's yardstick
+// (kernels/turbo.py:make_decoder_lanes).
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "bcjr_step.cuh"
 
-// Forward: new state n is reached from predecessors P0[n] (input bit
-// x0) and P1[n] (input x1); C0/C1 index the branch metric
-// g[c] for c = 2*x + parity: {a+b, a-b, b-a, -(a+b)}.
-// Backward: state s moves to N0[s] on input 0 (metric CB0[s]) and to
-// N1[s] on input 1 (metric CB1[s]).  Derived from phy/turbo.py
-// rsc_tables(); tests/test_torch_turbo.py checks them against it.
-#define BCJR_TABLES                                                  \
-  const int P0[8] = {0, 2, 4, 6, 0, 2, 4, 6};                        \
-  const int C0[8] = {0, 2, 1, 3, 3, 1, 2, 0};                        \
-  const int P1[8] = {1, 3, 5, 7, 1, 3, 5, 7};                        \
-  const int C1[8] = {3, 1, 2, 0, 0, 2, 1, 3};                        \
-  const int N0[8] = {0, 4, 5, 1, 2, 6, 7, 3};                        \
-  const int CB0[8] = {0, 0, 1, 1, 1, 1, 0, 0};                       \
-  const int N1[8] = {4, 0, 1, 5, 6, 2, 3, 7};                        \
-  const int CB1[8] = {3, 3, 2, 2, 2, 2, 3, 3};
+namespace {
 
 template <int W>
 __global__ void __launch_bounds__(128)
@@ -55,7 +43,6 @@ bcjr_kernel(const float* __restrict__ apr, const float* __restrict__ l_sys,
             const float* __restrict__ l_par, const float* __restrict__ a0,
             const float* __restrict__ bK, float* __restrict__ ext,
             float* __restrict__ a_end, float* __restrict__ b_start, int L) {
-  BCJR_TABLES
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= L) return;
 
@@ -69,19 +56,8 @@ bcjr_kernel(const float* __restrict__ apr, const float* __restrict__ l_sys,
   for (int k = 0; k < W; ++k) {
 #pragma unroll
     for (int s = 0; s < 8; ++s) alphas[k][s] = alpha[s];
-    const float a = 0.5f * (apr[k * L + j] + l_sys[k * L + j]);
-    const float b = 0.5f * l_par[k * L + j];
-    const float g[4] = {a + b, a - b, b - a, -(a + b)};
-    float an[8];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const float c0 = alpha[P0[n]] + g[C0[n]];
-      const float c1 = alpha[P1[n]] + g[C1[n]];
-      an[n] = fmaxf(c0, c1);
-    }
-    const float ref = an[0];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) alpha[n] = an[n] - ref;
+    bcjr_alpha_step(alpha, apr[k * L + j], l_sys[k * L + j],
+                    l_par[k * L + j]);
   }
 #pragma unroll
   for (int s = 0; s < 8; ++s) a_end[s * L + j] = alpha[s];
@@ -93,26 +69,8 @@ bcjr_kernel(const float* __restrict__ apr, const float* __restrict__ l_sys,
 #pragma unroll
   for (int i = 0; i < W; ++i) {
     const int k = W - 1 - i;
-    const float l_in = apr[k * L + j] + l_sys[k * L + j];
-    const float a = 0.5f * l_in;
-    const float b = 0.5f * l_par[k * L + j];
-    const float g[4] = {a + b, a - b, b - a, -(a + b)};
-    float m0 = 0.f, m1 = 0.f;
-    float bn[8];
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      const float t0 = g[CB0[s]] + beta[N0[s]];
-      const float t1 = g[CB1[s]] + beta[N1[s]];
-      const float f0 = alphas[k][s] + t0;
-      const float f1 = alphas[k][s] + t1;
-      m0 = (s == 0) ? f0 : fmaxf(m0, f0);
-      m1 = (s == 0) ? f1 : fmaxf(m1, f1);
-      bn[s] = fmaxf(t0, t1);
-    }
-    ext[k * L + j] = (m0 - m1) - l_in;
-    const float ref = bn[0];
-#pragma unroll
-    for (int s = 0; s < 8; ++s) beta[s] = bn[s] - ref;
+    ext[k * L + j] = bcjr_beta_step(beta, alphas[k], apr[k * L + j],
+                                    l_sys[k * L + j], l_par[k * L + j]);
   }
 #pragma unroll
   for (int s = 0; s < 8; ++s) b_start[s * L + j] = beta[s];

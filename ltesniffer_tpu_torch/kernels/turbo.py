@@ -1,15 +1,24 @@
 """Batched max-log-MAP turbo decoder, parallel-window lane layout.
 
 Counterpart of `ltesniffer_tpu/kernels/turbo.py:_make_decoder_pallas`: the
-K-step trellis is cut into NW = K/W windows of W steps; every (code block x
-window) pair is one lane of a (W, L) window-major layout, so one BCJR pass
-(`kernels/bcjr.py`, the hand-written CUDA kernel on the card) runs all
-windows of all code blocks in parallel.  Window-boundary metrics (alpha at
-each window end, beta at each window start) carry over to the next turbo
-iteration (next-iteration initialisation); the tail-terminated beta_K
-enters the last window of each block.  The QPP interleave and
-de-interleave between half-iterations are flat gathers with constant
-indices in that layout.
+K-step trellis is cut into NW = K/W windows of W steps, which run in
+parallel.  Window-boundary metrics (alpha at each window end, beta at each
+window start) carry over to the next turbo iteration (next-iteration
+initialisation); the tail-terminated beta_K enters the last window of each
+block.
+
+`make_decoder` is the main path's decoder: on a CUDA tensor it launches
+the fused whole-decode kernel (`kernels/turbo_decode.py`, one launch per
+call); on a CPU tensor it runs the lane decoder below with the plain BCJR
+twin, the fused kernel's plain version.
+
+`make_decoder_lanes` is that lane decoder: every (code block x window) pair
+is one lane of a (W, L) window-major layout, one BCJR pass
+(`kernels/bcjr.py`; on the card the per-pass CUDA kernel) runs all lanes,
+and the QPP interleave and de-interleave between half-iterations are flat
+gathers with constant indices in that layout.  On the card it is the
+earlier design, kept as the fused kernel's yardstick; the main path does
+not call it there.
 
 LLR sign convention: positive => bit 0 (matches demappers/Viterbi).
 """
@@ -21,7 +30,7 @@ import numpy as np
 import torch
 
 from ltesniffer_tpu_torch.phy import tables, turbo as turbo_host
-from . import bcjr as bcjr_mod
+from . import bcjr as bcjr_mod, turbo_decode
 from .cplx import const
 
 NEG = -1e9
@@ -56,15 +65,6 @@ def _beta_init_from_tail(tail_sys, tail_par):
     return beta
 
 
-def _window_len(K: int) -> int:
-    """Largest power-of-two window <= 32 dividing K (every 36.212 K is a
-    multiple of 8)."""
-    for w in (32, 16, 8):
-        if K % w == 0:
-            return w
-    return K
-
-
 @functools.lru_cache(maxsize=128)
 def _lane_consts(K: int, B: int):
     """Constant index maps for the window-major lane layout: (8 states,
@@ -74,7 +74,7 @@ def _lane_consts(K: int, B: int):
     pi = tables.qpp_interleave_indices(K).astype(np.int64)
     de = np.zeros(K, dtype=np.int64)
     de[pi] = np.arange(K, dtype=np.int64)
-    W = _window_len(K)
+    W = turbo_decode.window_len(K)
     NW = K // W
     L0 = B * NW
     L = -(-L0 // 128) * 128
@@ -129,10 +129,32 @@ def make_decoder(K: int, n_iter: int = 8):
     """Turbo decoder for code-block size K.
 
     fn(d_llrs (B, 3, K+4) f32) -> (bits (B, K) uint8, llr (B, K) f32), on
-    d_llrs' device.  Every BCJR pass goes through `kernels/bcjr.py:bcjr`:
-    the CUDA kernel for CUDA tensors, the plain twin for CPU tensors.
+    d_llrs' device: one launch of the fused CUDA kernel for a CUDA tensor,
+    the lane decoder over the plain BCJR twin for a CPU tensor.
     """
-    W = _window_len(K)
+    lanes = make_decoder_lanes(K, n_iter)
+
+    def decode(d_llrs):
+        d_llrs = d_llrs.to(torch.float32)
+        if d_llrs.device.type == "cuda":
+            return turbo_decode.turbo_decode_cuda(d_llrs.contiguous(), K,
+                                                  n_iter)
+        if d_llrs.device.type != "cpu":
+            raise ValueError(f"turbo: unsupported device {d_llrs.device}")
+        return lanes(d_llrs)
+
+    return decode
+
+
+@functools.lru_cache(maxsize=64)
+def make_decoder_lanes(K: int, n_iter: int = 8, bcjr=bcjr_mod.bcjr):
+    """The lane decoder: fn(d_llrs (B, 3, K+4) f32) -> (bits, llr) as
+    `make_decoder`, with every BCJR pass through `bcjr` (by default
+    `kernels/bcjr.py:bcjr`: the per-pass CUDA kernel for CUDA tensors, the
+    plain twin for CPU tensors; `bcjr_mod.bcjr_plain` on any device is the
+    fused kernel's plain version).
+    """
+    W = turbo_decode.window_len(K)
     NW = K // W
 
     def decode(d_llrs):
@@ -187,9 +209,9 @@ def make_decoder(K: int, n_iter: int = 8):
         a2, b2 = shift_a(zero_b), shift_b(zero_b, betaK2_full)
         ext2 = apr2 = apr1
         for _ in range(n_iter):
-            ext1, a1e, b1s = bcjr_mod.bcjr(apr1, l_sys_w, lp1w, a1, b1)
+            ext1, a1e, b1s = bcjr(apr1, l_sys_w, lp1w, a1, b1)
             apr2 = ext1.reshape(-1)[pi_w].reshape(W, L)
-            ext2, a2e, b2s = bcjr_mod.bcjr(apr2, l_sys_iw, lp2w, a2, b2)
+            ext2, a2e, b2s = bcjr(apr2, l_sys_iw, lp2w, a2, b2)
             apr1 = ext2.reshape(-1)[de_w].reshape(W, L)
             a1, b1 = shift_a(a1e), shift_b(b1s, betaK1_full)
             a2, b2 = shift_a(a2e), shift_b(b2s, betaK2_full)
