@@ -3,8 +3,10 @@
 The PyTorch port of `ltesniffer_tpu` (the JAX reference package, which
 stays beside it unchanged).  It imports neither JAX nor the reference:
 host-only modules are copied here.  The downlink chain
-(`sniffer.core.LTESnifferCore`) runs on a CUDA device; its turbo decoder's
-BCJR pass is the hand-written kernel `kernels/csrc/bcjr.cu`.
+(`sniffer.core.LTESnifferCore`, TM1-TM4 on 1 or 2 RX antennas) runs on a
+CUDA device; each turbo decode is one launch of the hand-written kernel
+`kernels/csrc/turbo_decode.cu`, and the host resolve runs in the C++
+resolver `csrc/resolver.cpp` (`native.py`).
 """
 
 __version__ = "0.1.0"

@@ -14,13 +14,13 @@ from ltesniffer_tpu_torch.phy.params import CellConfig
 from ltesniffer_tpu_torch.sniffer.core import SnifferConfig
 
 # Reference options the port leaves out, with the one value it
-# implements: the native C++ resolver (the port's Python resolver makes
-# the same decisions, so any value carries over), live-mode shedding (no
-# live driver yet), the int16/float32 ingest paths and the shallower
-# pipelines (the port runs packed int8 through the deep pipeline).
+# implements: live-mode shedding (no live driver yet), the int16/float32
+# ingest paths and the shallower pipelines (the port runs packed int8
+# through the deep pipeline).  `use_native` carries over: the port has
+# its own copy of the C++ resolver (`ltesniffer_tpu_torch/native.py`).
 _FIXED = {"live_mode": False, "ingest": "i8", "ingest_int16": True,
           "pipeline_depth": 3}
-_DROPPED = ("use_native", "live_buffer_sf") + tuple(_FIXED)
+_DROPPED = ("live_buffer_sf",) + tuple(_FIXED)
 
 
 def config_from_reference(d: dict, device: str = "cuda"):

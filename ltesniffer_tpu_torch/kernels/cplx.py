@@ -87,6 +87,15 @@ def cmul_conj(a, b):
     return torch.stack([ar * br + ai * bi, ai * br - ar * bi], dim=-1)
 
 
+def conj(a):
+    return torch.stack([a[..., 0], -a[..., 1]], dim=-1)
+
+
+def cscale(a, s):
+    """a * real s (broadcast over the pair axis)."""
+    return a * s[..., None]
+
+
 def cabs2(a):
     return a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1]
 

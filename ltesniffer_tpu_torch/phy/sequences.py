@@ -63,12 +63,16 @@ def gold_sequence(c_init: int, length: int) -> np.ndarray:
     return x1[NC:NC + length] ^ x2[NC:NC + length]
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def gold_basis(length: int):
     """(x1_tail, basis) for device-side Gold generation.
 
     ``c(c_init) = x1_tail XOR (bits(c_init) @ basis % 2)`` where
-    basis has shape (31, length).  Cached per length.
+    basis has shape (31, length).  Cached per length, without a bound: a
+    cell's PDSCH descrambles at a few dozen lengths (RE bucket x Qm), and
+    each entry is uploaded once (`kernels/cplx.const`).  Evicting an entry
+    costs a rebuild (31 LFSR runs in Python, tens of ms) and a new upload
+    on the next call of that length.
     """
     total = NC + length
     x1 = _x1_stream(total)[NC:].copy()

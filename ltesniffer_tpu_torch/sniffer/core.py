@@ -56,6 +56,10 @@ class SnifferConfig:
     decode_pdsch: bool = True
     api_mode: int = -1
     max_harq_retx_buffers: int = 4096
+    # the host resolver: True = the C++ resolver/RNTI manager
+    # (`ltesniffer_tpu_torch/native.py`, built with g++ at first use; the
+    # core raises if it cannot be built), False = the Python copy
+    use_native: bool = True
     # primary-pass turbo iterations: 2 matches srsRAN's effective average
     # (its per-CB early stop exits after 1-2 iterations at working SNR);
     # CRC failures re-decode from the stored LLRs at turbo_iters_max
@@ -99,10 +103,13 @@ class LTESnifferCore:
         # borderline decodes.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        # the host resolver: the Python copy, which tests/
-        # test_native_resolver.py holds equivalent to the reference's C++
-        self.rm = rnti_manager.default_manager(cfg.histogram_threshold)
-        self.search = dci_search.DciBlindSearch(self.cell, self.rm)
+        if cfg.use_native:
+            from ltesniffer_tpu_torch import native
+            self.rm = native.default_native_manager(cfg.histogram_threshold)
+            self.search = native.NativeDciBlindSearch(self.cell, self.rm)
+        else:
+            self.rm = rnti_manager.default_manager(cfg.histogram_threshold)
+            self.search = dci_search.DciBlindSearch(self.cell, self.rm)
         self.mcs = trackers.MCSTracking()
         self.harq = trackers.HarqEntity()
         self.ulsche = trackers.ULSchedule()
@@ -247,6 +254,27 @@ class LTESnifferCore:
                 self._phase4(ctx)
             self._phase5(ctx)
         return self.results
+
+    def process_batch(self, frames: np.ndarray, sf_idx: np.ndarray):
+        """Synchronous single-batch path (tests): complex64 frames (B, RX,
+        n) or (B, n), straight to the float frontend with no quantization;
+        the same phases as the pipelined driver, zero lookahead."""
+        x = np.asarray(frames, np.complex64)
+        if x.ndim == 2:
+            x = x[:, None]
+        ri = torch.from_numpy(cplx.to_ri(x)).to(self.device)
+        sf_idx = np.asarray(sf_idx).astype(np.int64)
+        with prof.span("p1_frontend"):
+            fe = self.frontend.run_ri(ri, torch.from_numpy(sf_idx).to(
+                self.device))
+        base = self._sf_dispatched
+        self._sf_dispatched += len(sf_idx)
+        ctx = dict(fe=fe, sf_idx=sf_idx, B=len(sf_idx), base=base,
+                   fbase=self._seg_sf0 + (base - self._seg_base), stage=1)
+        self._phase2(ctx)
+        self._phase3(ctx)
+        self._phase4(ctx)
+        self._phase5(ctx)
 
     # ------------------------------------------------------------------
     def _phase1_chunk(self, d64, d_scale, sf_idx: np.ndarray) -> dict:
@@ -913,11 +941,114 @@ class LTESnifferCore:
                             a: dci_search.AcceptedDci,
                             grant: dci_mod.DlGrant, sfn: int, sf: int,
                             tti: int):
-        """Formats 2/2A with two enabled TBs on a multi-antenna receiver:
-        spatial multiplexing (TM3/TM4) is not part of this port yet."""
-        raise NotImplementedError(
-            "TM3/TM4 spatial-multiplexing decode is not ported yet "
-            "(ltesniffer_tpu.sniffer.core._handle_dl_dci_mimo)")
+        """Formats 2/2A with two enabled TBs: spatial multiplexing decode
+        (TM4 via the DCI's precoding info, TM3 for format 2A).
+
+        Unknown-table RNTIs run the same dual-table (64 -> 256QAM) trial
+        as the single-TB path, and a success LEARNS the table — the
+        reference's retry wraps ALL its decodes incl. 2-TB
+        (`DL_Sniffer_PDSCH.cc:1090-1243`)."""
+        from ltesniffer_tpu_torch.kernels import mimo as mimo_mod
+        if a.fmt == "2":
+            if self.cell.nof_ports == 4:
+                n_layers, pmi = mimo_mod.decode_pinfo_4tx(grant.precoding,
+                                                          True)
+                if n_layers > 2:
+                    # rank-3/4 exceeds the 2-RX receiver: unsupported
+                    # MIMO config (reference W_MIMO, `MCSTracking.cc:98`)
+                    self.mcs.note_wrong_mimo(a.rnti)
+                    return
+            else:
+                n_layers, pmi = mimo_mod.decode_pinfo_2tx(grant.precoding,
+                                                          True)
+            tm = 4
+        else:
+            # format 2A: 4-port cells carry a 2-bit precoding field
+            # (36.212 Table 5.3.3.1.5A-2: 0 -> 2 layers, 1/2 -> rank 3/4)
+            if self.cell.nof_ports == 4 and grant.precoding > 0:
+                self.mcs.note_wrong_mimo(a.rnti)
+                return
+            tm, pmi = 3, 0
+        known = self.mcs.dl_table_of(a.rnti)
+        if known == trackers.McsTable.UNKNOWN:
+            tried = [trackers.McsTable.QAM64, trackers.McsTable.QAM256]
+        else:
+            tried = [known]
+        # HARQ classification ONCE per codeword (not per table trial),
+        # with the first table's TBS — like the single-TB path
+        cw_cfg = ((grant.mcs, grant.ndi, grant.rv),
+                  (grant.mcs2, grant.ndi2, grant.rv2))
+        decs, keys = [], []
+        for q, (mcs, ndi, _rv) in enumerate(cw_cfg):
+            qm0, i_tbs0 = tables.dl_mcs_to_qm_itbs(
+                mcs, tried[0] == trackers.McsTable.QAM256)
+            tbs0 = (tables.tbs_lookup(i_tbs0, grant.n_prb_alloc)
+                    if i_tbs0 >= 0 else 0)
+            dec = self.harq.classify(a.rnti, grant.harq_pid, q,
+                                     ndi, tbs0, tti)
+            key = self.harq.buffer_key(a.rnti, grant.harq_pid, q)
+            if not dec.is_retx:
+                self.soft_buffers.clear_harq(key)
+            decs.append(dec)
+            keys.append(key)
+        # soft combining only when the table is unambiguous (a trial
+        # decode must not pollute the HARQ buffers)
+        use_buffers = len(tried) == 1
+        res = None
+        used_table = tried[0]
+        for table in tried:
+            use256 = table == trackers.McsTable.QAM256
+            qms, tbss = [], []
+            for q, (mcs, _ndi, _rv) in enumerate(cw_cfg):
+                qm, i_tbs = tables.dl_mcs_to_qm_itbs(mcs, use256)
+                tbs = (tables.tbs_lookup(i_tbs, grant.n_prb_alloc)
+                       if i_tbs >= 0 else 0)
+                if decs[q].is_retx and tbs <= 0:
+                    tbs = decs[q].tbs    # mcs 29-31 re-TX: stored TBS
+                qms.append(qm)
+                tbss.append(tbs)
+            if min(tbss) <= 0:
+                continue
+            # synchronous: one host read of the LLRs and one of the bits
+            # per code-block size, between the batched jobs of phase 3
+            with prof.span("p3_mimo"):
+                r = pdsch_rx.decode_grant_mimo(
+                    fe["grids"], fe["h"], fe["noise_var"], i, self.cell, sf,
+                    cfi, rnti=a.rnti, prb_mask=grant.prb_mask,
+                    qms=tuple(qms), tbss=tuple(tbss), tm=tm,
+                    pmi=pmi if pmi is not None else 0,
+                    rvs=(grant.rv, grant.rv2),
+                    soft_buffers=self.soft_buffers if use_buffers else None,
+                    harq_keys=tuple(keys) if use_buffers else (None, None))
+            res = r
+            used_table = table
+            if any(x.crc_ok for x in r):
+                if known == trackers.McsTable.UNKNOWN:
+                    self.mcs.learn_dl_table(a.rnti, table)
+                break
+        if res is None:
+            return
+        st = self.mcs.stat_dl(a.rnti)
+        st.last_seen_tti = tti
+        for q, r in enumerate(res):
+            self.harq.report_crc(a.rnti, grant.harq_pid, q, r.crc_ok)
+            is_retx = decs[q].is_retx
+            if is_retx:
+                st.retx += 1
+            else:
+                st.new_tx += 1
+            if r.crc_ok:
+                st.success += 1
+                payload = np.packbits(r.tb_bits).tobytes()
+                self._emit_pdsch(a, payload, sfn, sf, crc_ok=True,
+                                 retx=1 if is_retx else 0)
+            else:
+                st.fail += 1
+            self.results.append(AcceptedPdsch(
+                dci=a, crc_ok=r.crc_ok, tbs=r.tbs,
+                payload=(np.packbits(r.tb_bits).tobytes()
+                         if r.crc_ok else None),
+                is_retx=is_retx, table=used_table))
 
     def _handle_sib(self, payload: bytes):
         """SI-RNTI PDSCH -> SIB1 (PLMN/cell identity + SI scheduling) and
@@ -1046,7 +1177,11 @@ class LTESnifferCore:
             "dcis": len(self.results),
             "pdsch_ok": ok,
             "harq_skipped": self.harq_skipped,
+            # live-mode drops and stream re-syncs: the live and stream
+            # drivers are not ported, so neither happens yet
+            "sf_skipped": 0,
             "active_rntis": len(self.rm.active_set()),
             "sync_losses": self.sync_losses,
+            "resyncs": 0,
             "search_stats": dataclasses.asdict(self.search.stats),
         }

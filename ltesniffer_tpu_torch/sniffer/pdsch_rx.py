@@ -1,8 +1,10 @@
 """PDSCH decode path: equalize -> demap -> descramble -> de-rate-match ->
 turbo decode -> CRC, with HARQ soft combining (torch).
 
-Counterpart of `ltesniffer_tpu/sniffer/pdsch_rx.py` for single-layer
-grants (TM1 port 0 and TM2 SFBC); capability parity with the reference's
+Counterpart of `ltesniffer_tpu/sniffer/pdsch_rx.py`: single-layer grants
+(TM1 port 0, TM2 SFBC) through the batched main path, and two-codeword
+spatial multiplexing (TM3 CDD, TM4 closed loop) through
+`decode_grant_mimo`; capability parity with the reference's
 `PDSCH_Decoder::decode_dl_mode` (`src/src/DL_Sniffer_PDSCH.cc:881-1291`):
 per-DCI decode, softbuffer reuse for retransmissions, dual-table retry
 handled by the caller (MCSTracking).
@@ -139,11 +141,102 @@ def decode_grant(grids, h, noise_var, b: int, cell: CellConfig, sf_idx: int,
                                 harq_key, n_iter, dev)
 
 
+# ---------------------------------------------------------------------------
+# Spatial multiplexing (TM3/TM4): two codewords over two layers
+# ---------------------------------------------------------------------------
+# host reads of the two-codeword path: one for both codewords' LLRs, one
+# for the decided bits of each code-block size
+HOST_READS = {"mimo": 0}
+
+
+@functools.lru_cache(maxsize=64)
+def _eq_demap_mimo_fn(cell: CellConfig, qm0: int, qm1: int, n_re_pad: int,
+                      tm: int, pmi: int):
+    """2-layer equalize + per-codeword demap/descramble.
+
+    (grid_flat (RX, L, 2), h_flat (RX, P, L, 2), noise 0-d, re_idx
+     (n_re_pad,) int64, c_init0 / c_init1 0-d int64) -> [llr0, llr1]"""
+    from ltesniffer_tpu_torch.kernels import mimo as mimo_mod
+
+    def run(grid_flat, h_flat, noise_var, re_idx, c_init0, c_init1):
+        y = grid_flat[:, re_idx, :][None]            # (1, RX, n, 2)
+        hh = h_flat[:, :, re_idx, :][None]           # (1, RX, P, n, 2)
+        nv = noise_var.reshape(1)
+        if tm == 4:
+            he = mimo_mod.effective_channel_tm4(hh, pmi, 2)
+        else:
+            he = mimo_mod.effective_channel_tm3(hh)
+        x = mimo_mod.mmse_2layer(y, he, nv)[0]       # (2, n, 2)
+        return [_descramble(demapper.llr(x[q], qm), ci, n_re_pad * qm)
+                for q, (qm, ci) in enumerate(((qm0, c_init0),
+                                              (qm1, c_init1)))]
+
+    return run
+
+
+def decode_grant_mimo(grids, h, noise_var, b: int, cell: CellConfig,
+                      sf_idx: int, cfi: int, rnti: int, prb_mask: np.ndarray,
+                      qms, tbss, tm: int, pmi: int = 0, rvs=(0, 0),
+                      soft_buffers=None, harq_keys=(None, None),
+                      n_iter: int = 8):
+    """Decode a 2-codeword spatial-multiplexed grant.  Returns per-codeword
+    PdschResult list (capability parity: `DL_Sniffer_PDSCH.cc` TM3/TM4 path).
+
+    Both codewords' LLRs come to the host in one read; their code blocks
+    are decoded together, one decoder call (and one read) per code-block
+    size — each block decodes on its own, so the bits are those of two
+    separate decodes."""
+    re_idx = pdsch_mod.grant_re_indices(cell, sf_idx, cfi, prb_mask)
+    n_re = len(re_idx)
+    dev = grids.device
+    n_pad = _bucket(n_re)
+    idx = np.full(n_pad, re_idx[-1], dtype=np.int64)
+    idx[:n_re] = re_idx
+    ci = [pdsch_mod.scrambling_cinit(rnti, q, sf_idx, cell.n_id_cell)
+          for q in (0, 1)]
+    fn = _eq_demap_mimo_fn(cell, qms[0], qms[1], n_pad, tm, pmi)
+    gflat = grids[b].reshape(grids.shape[1], -1, 2)
+    hflat = h[b].reshape(h.shape[1], h.shape[2], -1, 2)
+    llrs = fn(gflat, hflat, noise_var[b], torch.from_numpy(idx).to(dev),
+              *(torch.tensor(c, dtype=torch.int64, device=dev) for c in ci))
+    both = _host(torch.cat(llrs))
+    cw = [both[:len(llrs[0])], both[len(llrs[0]):]]
+    segs = [_derm_cbs(cw[q][:n_re * qms[q]], tbss[q], qms[q], rvs[q], n_re,
+                      soft_buffers, harq_keys[q]) for q in (0, 1)]
+    bits = _decode_cbs([d for seg in segs if seg is not None
+                        for d in seg[1]], n_iter, dev)
+    HOST_READS["mimo"] += 1 + len({d.shape for seg in segs
+                                   if seg is not None for d in seg[1]})
+    results = []
+    for q in (0, 1):
+        if segs[q] is None:
+            results.append(PdschResult(rnti, tbss[q], False, None, [], [],
+                                       n_re))
+            continue
+        seg, d_llrs = segs[q]
+        blocks, bits = bits[:seg.C], bits[seg.C:]
+        results.append(_finish_tb(seg, blocks, d_llrs, rnti, tbss[q], n_re,
+                                  soft_buffers, harq_keys[q]))
+    return results
+
+
 def _decode_tb_from_llrs(llr, rnti, tbs, qm, rv, n_re, soft_buffers,
                          harq_key, n_iter, device) -> PdschResult:
     """Shared backend: segmented de-rate-match + turbo + CRC."""
-    if tbs <= 0:
+    segd = _derm_cbs(llr, tbs, qm, rv, n_re, soft_buffers, harq_key)
+    if segd is None:
         return PdschResult(rnti, tbs, False, None, [], [], n_re)
+    seg, d_llrs = segd
+    return _finish_tb(seg, _decode_cbs(d_llrs, n_iter, device), d_llrs,
+                      rnti, tbs, n_re, soft_buffers, harq_key)
+
+
+def _derm_cbs(llr, tbs, qm, rv, n_re, soft_buffers, harq_key):
+    """Host de-rate-match of one TB's LLRs into per-code-block (3, K+4)
+    arrays, HARQ-combined with (and stored into) the soft buffers.
+    Returns (segmentation, [d per code block]), or None if tbs <= 0."""
+    if tbs <= 0:
+        return None
     G = n_re * qm
     seg = turbo_mod.segment_sizes(tbs)
     es = pdsch_mod.cb_rate_match_sizes(G, seg.C, qm)
@@ -169,16 +262,29 @@ def _decode_tb_from_llrs(llr, rnti, tbs, qm, rv, n_re, soft_buffers,
             soft_buffers[(harq_key, ci_)] = d
             d = d.copy()
         d_llrs.append(d)
+    return seg, d_llrs
+
+
+def _decode_cbs(d_llrs, n_iter, device) -> List[np.ndarray]:
+    """Turbo-decode (3, K+4) code blocks: one decoder call per code-block
+    size on `device`; returns each block's (K,) hard bits on the host."""
     by_k = {}
-    for ci_, K in enumerate(seg.K):
-        by_k.setdefault(K, []).append(ci_)
-    bits_per_cb = [None] * seg.C
+    for c, d in enumerate(d_llrs):
+        by_k.setdefault(d.shape[1] - 4, []).append(c)
+    bits_per_cb = [None] * len(d_llrs)
     for K, cis in by_k.items():
         batch = torch.from_numpy(np.stack([d_llrs[c] for c in cis])).to(device)
         bits, _ = kturbo.make_decoder(K, n_iter)(batch)
         bits = _host(bits)
         for j, c in enumerate(cis):
             bits_per_cb[c] = bits[j]
+    return bits_per_cb
+
+
+def _finish_tb(seg, bits_per_cb, d_llrs, rnti, tbs, n_re, soft_buffers,
+               harq_key) -> PdschResult:
+    """CB CRC24B (segmented TBs), reassembly and TB CRC24A on the host;
+    drops the HARQ soft buffers on success."""
     cb_ok, parts = [], []
     for ci_, K in enumerate(seg.K):
         blk = bits_per_cb[ci_]

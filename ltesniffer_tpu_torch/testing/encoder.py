@@ -207,3 +207,50 @@ def add_pbch(g: np.ndarray, cell: CellConfig, sfn: int):
     flat = g.reshape(g.shape[0], -1)
     for p in range(per_port.shape[0]):
         flat[p, re_idx] = per_port[p]
+
+
+def add_pdsch_mimo(g: np.ndarray, cell: CellConfig, sf_idx: int, cfi: int,
+                   rnti: int, prb_mask: np.ndarray, qms, tbs_bits,
+                   tm: int, pmi: int = 0, rvs=(0, 0)):
+    """Spatial-multiplexed PDSCH: 2 codewords -> 2 layers -> 2 or 4 ports.
+
+    tm: 3 (open-loop CDD) or 4 (closed-loop, ``pmi`` codebook index).
+    qms/tbs_bits/rvs: per-codeword modulation order, TB bits, rv.
+    4 ports: the rank-2 subset (36.211 Table 6.3.4.2.3-2 householder
+    codebook; TM3 cycles codebook indices 12..15 every 2 REs)."""
+    from ltesniffer_tpu_torch.phy import pdsch as pdsch_mod
+    from ltesniffer_tpu_torch.phy import sequences as seq_mod
+    from ltesniffer_tpu_torch.kernels import mimo as mimo_mod
+    assert cell.nof_ports in (2, 4)
+    re_idx = pdsch_mod.grant_re_indices(cell, sf_idx, cfi, prb_mask)
+    n_re = len(re_idx)
+    layers = []
+    for q, (qm, tb, rv) in enumerate(zip(qms, tbs_bits, rvs)):
+        G = n_re * qm
+        coded, _ = encode_pdsch_bits(tb, qm, G, rv)
+        c_init = pdsch_mod.scrambling_cinit(rnti, q, sf_idx, cell.n_id_cell)
+        bits = coded ^ seq_mod.gold_sequence(c_init, G)
+        layers.append(modulation.modulate(bits, qm))
+    x = np.stack(layers)                       # (2, n_re)
+    n_ports = cell.nof_ports
+    if tm == 4:
+        W = (mimo_mod.pmi_matrix_2layer_4tx(pmi) if n_ports == 4
+             else mimo_mod.pmi_matrix_2layer(pmi))   # (ports, layers)
+        ports = W @ x
+    else:  # TM3 large-delay CDD
+        U = mimo_mod._U_CDD
+        s = 1.0 - 2.0 * (np.arange(n_re) % 2)
+        ux = U @ x                             # (2, n_re)
+        ux[1] *= s                             # D(i)
+        if n_ports == 4:
+            ports = np.zeros((4, n_re), np.complex64)
+            ks = (np.arange(n_re) // 2) % 4
+            for k in range(4):
+                Wk = mimo_mod.pmi_matrix_2layer_4tx(12 + k)
+                sel = ks == k
+                ports[:, sel] = Wk @ ux[:, sel]
+        else:
+            ports = mimo_mod._W_CDD @ ux
+    flat = g.reshape(g.shape[0], -1)
+    for p in range(n_ports):
+        flat[p, re_idx] = ports[p]

@@ -6,9 +6,11 @@ and every third UE on the 256QAM MCS table (mcs 7 differs between the
 tables, so the sniffer must dual-table-trial the first grant and learn).
 It re-states the JAX package's `bench.py:build_stream` (whose module
 imports JAX at its top) with the same random draws, so both packages see
-the same IQ; the port's default leaves out the format-2A spatial-mux DCIs
-(`mimo_dcis=0`), which the port does not decode yet.  Nothing is written
-to disk.
+the same IQ, format-2A load included: MIMO_DCIS two-codeword (format 2A)
+DCIs per subframe, as `bench.py` sends them.  The cell has one RX
+antenna, so both packages count each such grant as a wrong-MIMO config
+(the reference's W_MIMO column) and decode no PDSCH for it.  Nothing is
+written to disk.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ CELL = CellConfig(n_id_cell=301, n_prb=100, nof_ports=2, nof_rx_ant=1)
 N_SF = 512
 N_RNTI = 150
 GRANTS = 12
-MIMO_DCIS = 0
+MIMO_DCIS = 1
 SEED = 7
 CFI = 2
 

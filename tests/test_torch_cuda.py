@@ -86,3 +86,76 @@ def test_fused_decode_equals_plain(card, K):
                                           want_bits.numpy())
             torch.testing.assert_close(out.cpu(), want_llr, rtol=0, atol=0)
         np.testing.assert_array_equal(bits.cpu().numpy(), sent)
+
+
+def _mimo_block_sizes():
+    """K of every codeword the MIMO cell sends, and of the 64QAM-table
+    trial the sniffer makes first for a 256QAM-table UE."""
+    from ltesniffer_tpu_torch.phy import tables
+    from ltesniffer_tpu_torch.phy import turbo as turbo_host
+    from ltesniffer_tpu_torch.testing import mimo_cell
+    cases = [(m, False) for pair in mimo_cell.MIMO_MCS_64 for m in pair]
+    cases += [(m, t) for m in mimo_cell.MIMO_MCS_256 for t in (False, True)]
+    ks = set()
+    for mcs, use256 in cases:
+        _, itbs = tables.dl_mcs_to_qm_itbs(mcs, use256)
+        tbs = tables.tbs_lookup(itbs, mimo_cell.N_PRB_GRANT)
+        ks.update(turbo_host.segment_sizes(tbs).K)
+    return sorted(ks)
+
+
+@pytest.mark.cuda
+def test_fused_decode_at_mimo_shapes_equals_plain(card):
+    """The two-codeword path's decodes: the MIMO cell's K values, two code
+    blocks per call, n_iter 8, with and without a HARQ prior — the fused
+    kernel's bits and LLRs equal the plain version's."""
+    rng = np.random.default_rng(8)
+    ks = _mimo_block_sizes()
+    assert len(ks) >= 3
+    for K in ks:
+        sent, llr, prior = _coded(K, 2, rng)
+        for d in (llr, llr + prior):
+            want_bits, want_llr = turbo.make_decoder(K, 8)(
+                torch.from_numpy(d))
+            n0 = turbo_decode.LAUNCHES["turbo_decode"]
+            bits, out = turbo.make_decoder(K, 8)(torch.from_numpy(d).to(card))
+            torch.cuda.synchronize()
+            assert turbo_decode.LAUNCHES["turbo_decode"] == n0 + 1
+            np.testing.assert_array_equal(bits.cpu().numpy(),
+                                          want_bits.numpy())
+            torch.testing.assert_close(out.cpu(), want_llr, rtol=0, atol=0)
+        np.testing.assert_array_equal(bits.cpu().numpy(), sent)
+
+
+@pytest.mark.cuda
+def test_decode_grant_mimo_on_card_equals_host(card):
+    """One two-codeword grant decoded from the same grids on the card and
+    on the host (each through its own frontend): both codewords CRC-ok
+    on both, with the bits that were sent."""
+    from ltesniffer_tpu_torch.phy import tables
+    from ltesniffer_tpu_torch.phy.params import CellConfig
+    from ltesniffer_tpu_torch.sniffer import frontend, pdsch_rx
+    from ltesniffer_tpu_torch.testing import encoder
+    cell = CellConfig(n_id_cell=93, n_prb=50, nof_ports=2, nof_rx_ant=2)
+    rng = np.random.default_rng(12)
+    mask = np.zeros(50, bool)
+    mask[5:25] = True
+    tbss = (tables.tbs_lookup(12, 20), tables.tbs_lookup(14, 20))
+    sent = [rng.integers(0, 2, t).astype(np.uint8) for t in tbss]
+    g = encoder.build_control_subframe(cell, 2, 2, [])
+    encoder.add_pdsch_mimo(g, cell, 2, 2, 0x5151, mask, (4, 4), sent, tm=4,
+                           pmi=2)
+    h = encoder.flat_channel(cell, 2, rng)
+    iq = encoder.subframe_iq(cell, encoder.apply_channel(g, h, 0.02, rng))
+    from ltesniffer_tpu_torch.kernels import cplx
+    ri = torch.from_numpy(cplx.to_ri(iq[None].astype(np.complex64)))
+    res = {}
+    for dev in ("cpu", card):
+        fe = frontend.make_frontend(cell).run_ri(
+            ri.to(dev), torch.tensor([2], device=dev))
+        res[str(dev)] = pdsch_rx.decode_grant_mimo(
+            fe["grids"], fe["h"], fe["noise_var"], 0, cell, 2, 2,
+            rnti=0x5151, prb_mask=mask, qms=(4, 4), tbss=tbss, tm=4, pmi=2)
+    for q in (0, 1):
+        assert res["cpu"][q].crc_ok and res[str(card)][q].crc_ok
+        np.testing.assert_array_equal(res[str(card)][q].tb_bits, sent[q])

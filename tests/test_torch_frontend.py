@@ -126,8 +126,19 @@ def test_demapper_llr_matches(qm):
 def test_frontend_i8c64_matches(ports):
     """The packed-int8 ingest the pipelined driver uses: int64 carrier ->
     bytes -> scale -> CFO de-rotation -> demod -> chest -> PCFICH."""
-    cfg = dict(CFG, nof_ports=ports)
-    rng = np.random.default_rng(30 + ports)
+    _frontend_i8c64_matches(dict(CFG, nof_ports=ports), 30 + ports)
+
+
+@pytest.mark.parametrize("ports", [1, 2, 4])
+def test_frontend_i8c64_matches_2rx(ports):
+    """The same at two RX antennas (the RX axis rides through the unpack,
+    the DFT, the channel estimate and the PCFICH combining)."""
+    _frontend_i8c64_matches(dict(CFG, nof_ports=ports, nof_rx_ant=2),
+                            40 + ports)
+
+
+def _frontend_i8c64_matches(cfg, seed):
+    rng = np.random.default_rng(seed)
     iq = _iq(rng, 3, cfg)
     words, scales = ref_cplx.to_i8_packed(iq)
     w64 = ref_cplx.view_i64(words)

@@ -212,3 +212,25 @@ def test_escalation_matches():
         flips.append((first, n, [r.crc_ok for r in pb.results]))
     assert flips[0] == flips[1]
     assert flips[1][1] > 0, flips
+
+
+def test_gold_basis_built_once_per_length():
+    """The PDSCH descrambler's Gold bases are cached per length without a
+    bound: a loaded cell cycles through more lengths (RE bucket x Qm) than
+    a small LRU holds, and a rebuild costs a Python LFSR run per call."""
+    import torch
+    from ltesniffer_tpu_torch.phy import sequences
+    lengths = sorted({256 * k * qm for k in range(1, 7) for qm in (2, 4, 6)})
+    assert len(lengths) > 8
+    c_init = torch.tensor([0x1234, 0x4321], dtype=torch.int64)
+    sequences.gold_basis.cache_clear()
+    for _ in range(2):
+        for n in lengths:
+            sequences.gold_sequence_torch(c_init, n)
+    info = sequences.gold_basis.cache_info()
+    assert info.misses == len(lengths) and info.hits == len(lengths)
+    for n in (lengths[0], lengths[-1]):
+        got = sequences.gold_sequence_torch(c_init, n).numpy()
+        for row, c in zip(got, (0x1234, 0x4321)):
+            np.testing.assert_array_equal(row,
+                                          sequences.gold_sequence(c, n))
