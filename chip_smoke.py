@@ -15,17 +15,21 @@ exit) if any phase fails:
    resolver (csrc/resolver.cpp); their build times and ptxas
    registers/spills.
 2. kernels vs plain version: at the K values of the loaded cell's and the
-   golden scenario's grants and K = 40 and 6144, n_iter 2 and 12, and at
-   the MIMO cell's K values, n_iter 8 (two code blocks per call, as one
-   two-codeword grant gives), with and without a HARQ prior, the bits
+   golden scenario's grants and K = 40 and 6144, n_iter 2 and 12, at the
+   uplink's K values (the UL cell's and UL golden's K = 832 and the UCI
+   grant's), n_iter 2 and 12, and at the MIMO cell's K values, n_iter 8
+   (two code blocks per call, as one two-codeword grant gives), with and
+   without a HARQ prior, the bits
    decided on the card by the fused kernel and by the lane decoder over
    the pass kernel equal those of the plain version (the lane decoder
    over the plain twin, on the host), and the fused kernel's LLRs are
    compared too; one pass of the pass kernel and of the twin on the same
    card tensors agrees within 1e-4 * max(1, |x|).  Times, in turns in one
    call, of a whole decode at the loaded cell's main shape (fused, lanes,
-   lanes, fused; then the plain version), of one MIMO-shaped decode at
-   n_iter 8, and of one pass, beside their bounds.
+   lanes, fused; then the plain version), of one decode at the UL cell's
+   shape (K = 832, the code blocks of one batch of 256 subframes, n_iter
+   2), of one MIMO-shaped decode at n_iter 8, and of one pass, beside
+   their bounds.
 3. golden: the golden scenario (tests/golden/dl_mode.pcap), built by the
    port's own generator, run on the card; the pcap's sha256 must equal.
 4. loaded cell at full width (20 MHz, 512 subframes, batch 256, with its
@@ -43,7 +47,18 @@ exit) if any phase fails:
    every CRC-ok payload must be one the generator sent; the fused kernel
    must have launched and the pass kernel not; sf/s (first and warm
    pass) and the host reads of the two-codeword path.
-6. the `kernels` JSON line, then the result line.
+6. the uplink: the UL golden scenario (tests/golden/ul_mode.pcap), built
+   by the port's generator, through `LTESnifferCoreUL.run_dual_samples`
+   on the card (sha256 equal); the bench's UL cell at full width (20 MHz,
+   1024 subframes, 8 PUSCH grants per subframe, batch 256) through
+   `run_dual_packed`, held against the JAX package's CPU run
+   (ltesniffer_tpu_torch/testing/ul_expected.json): equal accepted-DCI0
+   list and result list, PUSCH CRC-ok flags differing in <= 0.5 % of
+   results, every CRC-ok payload one the generator sent, fused launches
+   and no pass launch in this run; sf/s (first and warm pass), the host
+   spans and reads; the UCI grant (HARQ-ACK + RI + aperiodic CQI on one
+   PUSCH) decodes to the transmitted TB.  6b: a profiled UL pass.
+7. the `kernels` JSON line, then the result line.
 
 Imports torch, numpy, the standard library and the port only — no JAX.
 Writes only under a temporary directory and ltesniffer_tpu_torch/_build/.
@@ -59,10 +74,13 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_PCAP = os.path.join(REPO, "tests", "golden", "dl_mode.pcap")
+GOLDEN_UL_PCAP = os.path.join(REPO, "tests", "golden", "ul_mode.pcap")
 EXPECTED = os.path.join(REPO, "ltesniffer_tpu_torch", "testing",
                         "dl_loaded_expected.json")
 EXPECTED_MIMO = os.path.join(REPO, "ltesniffer_tpu_torch", "testing",
                              "mimo_expected.json")
+EXPECTED_UL = os.path.join(REPO, "ltesniffer_tpu_torch", "testing",
+                           "ul_expected.json")
 MIMO_BATCH = 32                  # as the expected record was made
 MIMO_N_ITER = 8                  # decode_grant_mimo's turbo iterations
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
@@ -134,6 +152,27 @@ def golden_scenario():
                                      harq_pid=j % 8))
         sb.add_subframe(sf, txs)
     return cell, sb.stream(), sb.truth
+
+
+def ul_golden_scenario():
+    """tests/test_golden_replay.py:_build_dual, through the port:
+    (cell, DL stream, UL stream)."""
+    import numpy as np
+    from ltesniffer_tpu_torch.phy import tables
+    from ltesniffer_tpu_torch.phy.params import CellConfig
+    from ltesniffer_tpu_torch.testing import scenario
+    cell = CellConfig(n_id_cell=199, n_prb=50, nof_ports=2, nof_rx_ant=1)
+    sb = scenario.DualScenarioBuilder(cell, cfi=2, seed=20260821)
+    rng = np.random.default_rng(99)
+    _, itbs = tables.ul_mcs_to_qm_itbs(6)
+    tbs = tables.tbs_lookup(itbs, 8)
+    for j in range(30):
+        txs = [scenario.UlTx(rnti=0x600 + (j % 4), prb_start=4, n_prb=8,
+                             mcs=6, tb_bits=rng.integers(0, 2, tbs)
+                             .astype(np.uint8))]
+        sb.add_subframe(j % 10, txs, strict=False)
+    dl, ul = sb.streams()
+    return cell, dl, ul
 
 
 def code_block_sizes(truth) -> dict:
@@ -370,17 +409,17 @@ def run_loaded(device, words, scales, tmp: str, batch_size: int = 256,
     return c, acc, dt
 
 
-def profile_loaded(device, words, scales, tmp: str):
-    """A second loaded-cell pass under torch.profiler: device time by
-    kernel name, the device's busy share of the wall time, and the host
-    spans of the port's stage profiler."""
+def profile_pass(run):
+    """One more pass of a cell (`run()` returns its wall seconds) under
+    torch.profiler: device time by kernel name, the device's busy share of
+    the wall time, and the host spans of the port's stage profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from ltesniffer_tpu_torch.sniffer import prof
     prof.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
-        _, _, dt = run_loaded(device, words, scales, tmp)
+        dt = run()
     from torch.autograd import DeviceType
     rows = []
     for e in p.key_averages():
@@ -448,6 +487,106 @@ def wrong_mimo(c) -> int:
     return sum(st.wrong_mimo for st in c.mcs.stats_dl.values())
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the uplink
+# ---------------------------------------------------------------------------
+def run_ul_golden(device, tmp: str):
+    from ltesniffer_tpu_torch.sniffer import core
+    cell, dl, ul = ul_golden_scenario()
+    out = os.path.join(tmp, "ul_golden.pcap")
+    cfg = core.SnifferConfig(cell=cell, batch_size=8, pcap_path=out,
+                             acquire_sfn=False, device=device)
+    c = core.LTESnifferCoreUL(cfg)
+    c.run_dual_samples(dl, ul)
+    c.close()
+    got = hashlib.sha256(open(out, "rb").read()).hexdigest()
+    want = hashlib.sha256(open(GOLDEN_UL_PCAP, "rb").read()).hexdigest()
+    n_ok = sum(r.crc_ok for r in c.ul_results)
+    log(f"  UL golden pcap sha256 {got} ("
+        f"{'equal' if got == want else 'DIFFERS'}); {n_ok} of "
+        f"{len(c.ul_results)} PUSCH CRC-ok")
+    if got != want:
+        raise AssertionError(f"UL golden pcap sha256 {got} != {want}")
+
+
+def run_ul(device, dl_packed, ul_packed, tmp: str):
+    """The UL main path: run_dual_packed over the UL cell, logging the
+    accepted DCI0s.  Returns (core, DCI0 log, seconds)."""
+    import torch
+    from ltesniffer_tpu_torch.sniffer import core
+    from ltesniffer_tpu_torch.testing import ul_cell
+    cfg = core.SnifferConfig(cell=ul_cell.CELL, batch_size=ul_cell.BATCH,
+                             pcap_path=os.path.join(tmp, "ul.pcap"),
+                             acquire_sfn=False, device=device)
+    c = core.LTESnifferCoreUL(cfg)
+    dci0 = ul_cell.log_dci0(c)
+    t0 = time.perf_counter()
+    c.run_dual_packed(dl_packed, ul_packed)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c.close()
+    return c, dci0, dt
+
+
+def compare_ul(rec: dict, c, dci0, truth):
+    """Hold one UL run against the expected record: equal accepted-DCI0
+    list and result list (sfn, subframe, RNTI, in order), CRC-ok flags
+    within CRC_DIFF_MAX of the results, every CRC-ok payload one the
+    generator sent."""
+    from ltesniffer_tpu_torch.testing import ul_cell
+    if dci0 != rec["dci0"]:
+        missing = [x for x in rec["dci0"] if x not in dci0][:10]
+        extra = [x for x in dci0 if x not in rec["dci0"]][:10]
+        raise AssertionError(f"accepted DCI0s differ: {len(dci0)} vs "
+                             f"{len(rec['dci0'])}; missing {missing}, "
+                             f"extra {extra}")
+    rows = ul_cell.result_rows(c)
+    if [r[:3] for r in rows] != [r[:3] for r in rec["results"]]:
+        raise AssertionError(f"PUSCH result lists differ: {len(rows)} vs "
+                             f"{len(rec['results'])} results")
+    diff = [(g, w) for g, w in zip(rows, rec["results"]) if g[3] != w[3]]
+    for g, w in diff[:20]:
+        log(f"  CRC-ok differs: sfn={g[0]} sf={g[1]} rnti={g[2]} "
+            f"({'card only' if g[3] else 'expected only'})")
+    share = len(diff) / max(1, len(rows))
+    n_ok = sum(r[3] for r in rows)
+    log(f"  CRC-ok: {n_ok} on the card, {rec['crc_ok']} expected, "
+        f"{len(diff)} differ ({100 * share:.3f} % of {len(rows)} results)")
+    if share > CRC_DIFF_MAX:
+        raise AssertionError(f"CRC-ok flags differ in {100 * share:.3f} % "
+                             f"of results (limit {100 * CRC_DIFF_MAX} %)")
+    sent = set(truth)
+    bad = [r for r in c.ul_results if r.crc_ok and
+           (r.sfn * 10 + r.sf_idx, int(r.rnti), r.payload) not in sent]
+    log(f"  CRC-ok payloads not sent by the generator: {len(bad)}")
+    if bad:
+        raise AssertionError(f"{len(bad)} CRC-ok PUSCH payloads differ from "
+                             "the generator's truth")
+
+
+def run_uci(device):
+    """tests/test_ul_mode_e2e.py:test_uci_ack_ri_through_core's scenario on
+    the card: the PUSCH's payload must be the transmitted TB."""
+    import numpy as np
+    from ltesniffer_tpu_torch.sniffer import core
+    from ltesniffer_tpu_torch.testing import ul_cell
+    dl, ul, rnti, tb = ul_cell.uci_scenario()
+    c = core.LTESnifferCoreUL(core.SnifferConfig(
+        cell=ul_cell.UCI_CELL, batch_size=4, device=device))
+    c.run_dual_samples(dl, ul)
+    ok = [r for r in c.ul_results if r.crc_ok and r.rnti == rnti]
+    got = (np.unpackbits(np.frombuffer(ok[0].payload, np.uint8))[:len(tb)]
+           if ok else None)
+    good = (len(c.ul_results) == 1 and got is not None
+            and np.array_equal(got, tb))
+    log(f"  UCI grant (HARQ-ACK + RI + aperiodic CQI): "
+        f"{len(c.ul_results)} result(s), payload "
+        f"{'equals' if good else 'DIFFERS from'} the transmitted TB")
+    if not good:
+        raise AssertionError("the UCI grant did not decode to the "
+                             "transmitted TB")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -458,8 +597,9 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from ltesniffer_tpu_torch import native
     from ltesniffer_tpu_torch.kernels import bcjr, nvcc_build, turbo_decode
-    from ltesniffer_tpu_torch.sniffer import pdsch_rx, prof
-    from ltesniffer_tpu_torch.testing import loaded_cell, mimo_cell
+    from ltesniffer_tpu_torch.phy import tables, turbo as turbo_host
+    from ltesniffer_tpu_torch.sniffer import pdsch_rx, prof, pusch_rx
+    from ltesniffer_tpu_torch.testing import loaded_cell, mimo_cell, ul_cell
     device = "cuda"
     kind = torch.cuda.get_device_name(0)
     rng = np.random.default_rng(20260817)
@@ -505,6 +645,17 @@ def main() -> int:
                     rec_mimo["config"]["batch_size"] != MIMO_BATCH:
                 raise AssertionError("MIMO expected record does not match "
                                      "the scenario")
+            t0 = time.perf_counter()
+            ul_dl, ul_ul, ul_placed, ul_truth = ul_cell.build_packed()
+            log(f"  UL cell: {ul_cell.N_SF} subframes, {ul_placed} placed "
+                f"DCI0s, {len(ul_truth)} PUSCH sent, built in "
+                f"{time.perf_counter() - t0:.1f} s")
+            rec_ul = json.load(open(EXPECTED_UL))
+            if rec_ul["params"] != ul_cell.params() or \
+                    rec_ul["placed"] != ul_placed or \
+                    rec_ul["config"]["batch_size"] != ul_cell.BATCH:
+                raise AssertionError("UL expected record does not match "
+                                     "the scenario")
         with Phase("2 kernels vs plain version"):
             ks_loaded = code_block_sizes(loaded_truth)
             ks = dict(ks_loaded)
@@ -524,6 +675,19 @@ def main() -> int:
                                    iters=(MIMO_N_ITER,), blocks=2)
             for k in err:
                 err[k] = max(err[k], err_m[k])
+            # the uplink: the UL cell's and UL golden's grants (MCS 6 on
+            # 8 PRB) and the UCI grant (MCS 6 on 10 PRB)
+            ks_ul = {}
+            for n_prb in (ul_cell.N_PRB_GRANT, 10):
+                _, itbs = tables.ul_mcs_to_qm_itbs(ul_cell.UL_MCS)
+                for K in turbo_host.segment_sizes(
+                        tables.tbs_lookup(itbs, n_prb)).K:
+                    ks_ul[K] = ks_ul.get(K, 0) + ul_cell.GRANTS * \
+                        ul_cell.BATCH
+            log(f"  UL K values (n_iter 2 and 12): {sorted(ks_ul)}")
+            err_u = check_decoders(ks_ul, device, rng)
+            for k in err:
+                err[k] = max(err[k], err_u[k])
             # timing at the loaded cell's most common K, with the code
             # blocks one batch of 256 subframes carries
             K_main = max(ks_loaded, key=ks_loaded.get)
@@ -537,6 +701,20 @@ def main() -> int:
                 K_mimo, [t for t in mimo_truth if t["fmt"] != "1A"])
             td[MIMO_N_ITER] = time_decoders(K_mimo, B_mimo, device, rng,
                                             iters=(MIMO_N_ITER,))[MIMO_N_ITER]
+            # the UL cell: K = 832, the code blocks of the grants of one
+            # batch of 256 subframes in one call, n_iter 2
+            _, itbs = tables.ul_mcs_to_qm_itbs(ul_cell.UL_MCS)
+            K_ul = turbo_host.segment_sizes(
+                tables.tbs_lookup(itbs, ul_cell.N_PRB_GRANT)).K[0]
+            B_ul = ul_cell.GRANTS * ul_cell.BATCH
+            t_ul = time_decoders(K_ul, B_ul, device, rng, iters=(2,))[2]
+            log(f"  whole decode at the UL cell's shape K={K_ul}, B={B_ul}, "
+                f"n_iter=2 on {card}: fused kernel {t_ul['ms']:.4f} ms "
+                f"(turns {t_ul['ms_turns'][0]:.4f}, "
+                f"{t_ul['ms_turns'][1]:.4f}); lane decoder + pass kernel "
+                f"{t_ul['lanes_ms']:.4f} ms; plain version "
+                f"{t_ul['plain_ms']:.4f} ms; bound {t_ul['bound_ms']:.4f} "
+                f"ms ({t_ul['bound_by']})")
             for n_iter, t in td.items():
                 K, B = (K_mimo, B_mimo) if n_iter == MIMO_N_ITER else \
                     (K_main, B_main)
@@ -603,7 +781,7 @@ def main() -> int:
             log(f"  warm second pass: {loaded_cell.N_SF / dt2:.1f} "
                 f"subframes/s on {card} ({dt2:.2f} s wall)")
         with Phase("4b where the time goes (profiled second pass)"):
-            profile_loaded(device, words, scales, tmp)
+            profile_pass(lambda: run_loaded(device, words, scales, tmp)[2])
         with Phase("5 MIMO cell, 20 MHz, 2x2, 64 subframes, batch "
                    f"{MIMO_BATCH}"):
             bcjr.reset_launches()
@@ -656,6 +834,41 @@ def main() -> int:
             log(f"  warm second pass: {mimo_cell.N_SF / dt_m2:.1f} "
                 f"subframes/s on {card} ({dt_m2:.2f} s wall; p3_mimo "
                 f"{mspan2['s']:.4f} s over {mspan2['n']} decodes)")
+        with Phase("6 uplink: UL golden, UL cell (20 MHz, 1024 subframes, "
+                   "8 PUSCH/sf, batch 256), UCI grant"):
+            run_ul_golden(device, tmp)
+            prof.reset()
+            bcjr.reset_launches()
+            turbo_decode.reset_launches()
+            pusch_rx.HOST_READS["pusch"] = 0
+            cu, dci0, dt_u = run_ul(device, ul_dl, ul_ul, tmp)
+            n_fused_u = turbo_decode.LAUNCHES["turbo_decode"]
+            n_pass_u = bcjr.LAUNCHES["bcjr"]
+            n_ok = sum(r.crc_ok for r in cu.ul_results)
+            log(f"  UL cell: {len(dci0)} accepted DCI0s, "
+                f"{len(cu.ul_results)} PUSCH results, {n_ok} CRC-ok "
+                f"(placed {ul_placed}; record {rec_ul['crc_ok']} of "
+                f"{rec_ul['n_results']})")
+            log(f"  {ul_cell.N_SF / dt_u:.1f} subframes/s on {card} "
+                f"({dt_u:.2f} s wall, first reading, not a target)")
+            log(f"  launches in this run: turbo_decode (fused) {n_fused_u}, "
+                f"bcjr (pass kernel) {n_pass_u}; PUSCH host reads "
+                f"{pusch_rx.HOST_READS['pusch']}")
+            for line in prof.pretty().splitlines():
+                log(f"  host span {line}")
+            compare_ul(rec_ul, cu, dci0, ul_truth)
+            if n_fused_u <= 0:
+                raise AssertionError("the UL path launched no fused turbo "
+                                     "kernel")
+            if n_pass_u != 0:
+                raise AssertionError(f"the UL path launched the pass kernel "
+                                     f"{n_pass_u} times")
+            _, _, dt_u2 = run_ul(device, ul_dl, ul_ul, tmp)
+            log(f"  warm second pass: {ul_cell.N_SF / dt_u2:.1f} "
+                f"subframes/s on {card} ({dt_u2:.2f} s wall)")
+            run_uci(device)
+        with Phase("6b where the UL cell's time goes (profiled pass)"):
+            profile_pass(lambda: run_ul(device, ul_dl, ul_ul, tmp)[2])
         t2, t12, t8 = td[2], td[12], td[MIMO_N_ITER]
         line = {"kernels": [{
             "name": "turbo_decode", "route": "cuda",
@@ -673,6 +886,10 @@ def main() -> int:
                                "n_iter": MIMO_N_ITER},
                      **{k: t8[k] for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "lanes_ms")}},
+            "ul": {"launches": n_fused_u,
+                   "shape": {"K": K_ul, "B": B_ul, "n_iter": 2},
+                   **{k: t_ul[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "lanes_ms")}},
         }, {
             "name": "bcjr", "route": "cuda",
             "source": "ltesniffer_tpu_torch/kernels/csrc/bcjr.cu",
@@ -680,7 +897,7 @@ def main() -> int:
             "max_abs_err": err["bcjr"], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": None,
-            "launches_mimo": n_pass_m}]}
+            "launches_mimo": n_pass_m, "launches_ul": n_pass_u}]}
         log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,8 +6,9 @@ every public function so tensors compare one to one.  DFTs become four
 real matmuls and elementwise complex math becomes plain float math.
 
 Host boundary: `to_ri` views numpy complex64 as (..., 2) float32;
-`to_i8_packed` / `view_i64` pack it as int8 IQ for the device.  `const` uploads a cached numpy
-constant to a device once.
+`to_i8_packed` / `view_i64` pack it as int8 IQ for the device, and
+`unpack_i8` unpacks one subframe on the host.  `const` uploads a cached
+numpy constant to a device once.
 """
 from __future__ import annotations
 
@@ -71,6 +72,15 @@ def view_i64(packed: np.ndarray) -> np.ndarray:
     into [w0, w1] order)."""
     assert packed.shape[-1] % 2 == 0
     return np.ascontiguousarray(packed).view(np.dtype("<i8"))
+
+
+def unpack_i8(packed_row: np.ndarray, scale: float) -> np.ndarray:
+    """Inverse of `to_i8_packed` for one subframe: (RX, n/2) '<i4' words +
+    scale -> (RX, n) complex64 (host side; PRACH correlation runs on host
+    numpy for the occasional allowed subframe)."""
+    b = np.ascontiguousarray(packed_row).view(np.int8)
+    ri = b.astype(np.float32).reshape(packed_row.shape[0], -1, 2) * scale
+    return ri.view(np.complex64).reshape(packed_row.shape[0], -1)
 
 
 def cmul(a, b):

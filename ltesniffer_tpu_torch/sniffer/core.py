@@ -1,7 +1,9 @@
-"""Sniffer core: the batched DL processing loop (torch).
+"""Sniffer core: the batched processing loops (torch).
 
-Counterpart of `ltesniffer_tpu/sniffer/core.py:LTESnifferCore` for the
-downlink: a re-design of `LTESniffer_Core::run` + `SubframeWorker::work`
+Counterpart of `ltesniffer_tpu/sniffer/core.py`: `LTESnifferCore` for the
+downlink, and `LTESnifferCoreUL` below for UL mode (the DL carrier's DCI0
+grants decoded on the UL carrier).  The DL loop is a re-design of
+`LTESniffer_Core::run` + `SubframeWorker::work`
 (`src/src/LTESniffer_Core.cc:107-528`, `src/src/SubframeWorker.cc:142-234`).
 Instead of a ring of 20 worker threads each processing one subframe, the
 stream is framed into batches of B subframes that move through the device
@@ -1185,3 +1187,344 @@ class LTESnifferCore:
             "resyncs": 0,
             "search_stats": dataclasses.asdict(self.search.stats),
         }
+
+
+# ---------------------------------------------------------------------------
+# UL mode: dual-stream (DL + UL carrier) sniffing
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class AcceptedPusch:
+    rnti: int
+    sfn: int
+    sf_idx: int
+    crc_ok: bool
+    tbs: int
+    payload: Optional[bytes]
+    snr_db: float
+    ta_us: float
+    table: trackers.McsTable
+    from_rar: bool
+
+
+class LTESnifferCoreUL(LTESnifferCore):
+    """DL+UL mode: the DL stream drives the blind search; DCI0/RAR grants
+    apply to the UL stream 4/6 subframes later (`SubframeWorker::run_ul_mode`
+    + `PUSCH_Decoder::decode`, SURVEY.md §3.3).  Counterpart of
+    `ltesniffer_tpu/sniffer/core.py:LTESnifferCoreUL`, with its phase order.
+
+    The UL decode is batched like the DL path: all grants pending over a
+    subframe batch — including 16/64/256QAM trial variants for
+    unknown-table RNTIs — dispatch as grouped device calls with one fused
+    device -> host read (`pusch_rx.dispatch_grants_ul_batch`);
+    unknown-table trials are rate-limited per RNTI
+    (`MCSTracking.UL_TRIAL_LIMIT`).  PRACH detection runs on the host on
+    every UL subframe the SIB2 PRACH configuration allows (`work_prach`,
+    `UL_Sniffer_PUSCH.cc:672-713`)."""
+
+    _CASCADE = [("16qam", trackers.McsTable.UL_16QAM),
+                ("64qam", trackers.McsTable.UL_64QAM),
+                ("256qam", trackers.McsTable.UL_256QAM)]
+    _TNAME = {trackers.McsTable.UL_16QAM: "16qam",
+              trackers.McsTable.UL_64QAM: "64qam",
+              trackers.McsTable.UL_256QAM: "256qam"}
+
+    def __init__(self, cfg: SnifferConfig, cyclic_shift_cfg: int = 0):
+        super().__init__(cfg)
+        from . import pusch_rx
+        self.ul_frontend = pusch_rx.make_ul_frontend(self.cell)
+        self.cyclic_shift_cfg = cyclic_shift_cfg
+        self.ul_results: List[AcceptedPusch] = []
+        self.prach_detections: List[dict] = []
+        self.ul_hist = trackers.UlGrantHistory()
+        self._ul_pending = None
+
+    def run_dual_samples(self, dl_samples: np.ndarray, ul_samples: np.ndarray,
+                         sf_idx0: int = 0,
+                         max_subframes: Optional[int] = None):
+        """Two single-antenna complex64 streams on one sample clock,
+        quantized to packed int8 (`cplx.to_i8_packed`), then the pipelined
+        loop of `run_dual_packed`."""
+        n = self.cell.sf_len
+        total = min(len(dl_samples), len(ul_samples)) // n
+        if max_subframes is not None:
+            total = min(total, max_subframes)
+        dl = cplx.to_i8_packed(dl_samples[:total * n].reshape(total, 1, n))
+        ul = cplx.to_i8_packed(ul_samples[:total * n].reshape(total, 1, n))
+        return self.run_dual_packed(dl, ul, sf_idx0)
+
+    def run_dual_packed(self, dl_packed, ul_packed, sf_idx0: int = 0,
+                        max_subframes: Optional[int] = None):
+        """Dual-carrier ingest from pre-quantized packed-int8 IQ: (words,
+        scales) per stream, copied to the device a batch at a time ahead
+        of the compute frontier (see `run_packed`)."""
+        total = min(dl_packed[0].shape[0], ul_packed[0].shape[0])
+        if max_subframes is not None:
+            total = min(total, max_subframes)
+        sf_idx = (sf_idx0 + np.arange(total)) % 10
+        dl64 = cplx.view_i64(dl_packed[0])
+        ul64 = cplx.view_i64(ul_packed[0])
+        dl_chunks: dict = {}
+        ul_chunks: dict = {}
+        self._seg_base = self._sf_dispatched
+        self._seg_sf0 = sf_idx0
+        # deep pipeline, the JAX package's order exactly: at iteration k
+        # the loop finalizes batch k-3, joins batch k-2's PDSCH reads and
+        # queues its escalation, queues batch k's device work (DL frontend
+        # + search + UL demod), then resolves batch k-1 and queues its UL
+        # grant decode.  Invariants: DL phase5(k-3) runs before
+        # dual_phase3(k-1) (HARQ/MCS state gates job prep), and UL
+        # finish(k-2) runs before UL build(k-1) (table learning gates the
+        # cascade); the UL golden pcap's record order depends on both.
+        from collections import deque
+        q: deque = deque()
+        for kk, a in enumerate(range(0, total, self.cfg.batch_size)):
+            if self.stop_requested:
+                break
+            for kp in range(kk, kk + 1 + self.PREFETCH_BATCHES):
+                self._put_chunk(dl_chunks, dl64, dl_packed[1], sf_idx,
+                                kp, total)
+                self._put_chunk(ul_chunks, ul64, ul_packed[1], sf_idx,
+                                kp, total)
+            if len(q) >= 3:
+                self._phase5(q.popleft()[0])
+            if len(q) >= 2:
+                self._phase4(q[-2][0])
+            q.append(self._dispatch_dual(dl_chunks.pop(kk),
+                                         ul_chunks.pop(kk), a))
+            if len(q) >= 2:
+                self._dual_phase3(q[-2], ul_packed)
+        while q:
+            cur = q.popleft()
+            if cur[0]["stage"] < 3:
+                self._dual_phase3(cur, ul_packed)
+            if cur[0]["stage"] < 4:
+                self._phase4(cur[0])
+            self._phase5(cur[0])
+        self._finish_ul_pending()
+        return self.ul_results
+
+    def _finish_ul_pending(self):
+        from . import pusch_rx
+        prev = self._ul_pending
+        if prev is not None:
+            self._ul_pending = None
+            jobs, pb = prev
+            esc = (self.cfg.turbo_iters_max
+                   if self.cfg.turbo_iters_max > self.cfg.turbo_iters
+                   else 0)
+            self._finish_ul(jobs, pusch_rx.finish_grants_ul_batch(
+                pb, n_iter_esc=esc))
+
+    def _dispatch_dual(self, dl_chunk, ul_chunk, a: int):
+        """Device half of one dual batch: DL frontend + blind search first
+        (the candidate read must not wait behind the UL demod), then the
+        UL SC-FDMA demod — all queued, nothing read."""
+        ctx = self._phase1_chunk(*dl_chunk)
+        self._phase2(ctx)
+        # UL grids stay ON THE DEVICE: the batched grant decode gathers
+        # from them there and only the fused per-grant results come back
+        u64, usc, _ = ul_chunk
+        with prof.span("pu_frontend"):
+            ul_grids = self.ul_frontend.run_i8c64(u64, usc)
+        return (ctx, ul_grids, a, ctx["sf_idx"])
+
+    def _dual_phase3(self, cur, ul_packed):
+        """Resolve one dual batch's DL side (collecting the UL grants its
+        subframes schedule), finish the PREVIOUS UL batch, and queue this
+        batch's grouped UL grant decode."""
+        from . import pusch_rx
+        ctx, ul_grids, a, sf_idx = cur
+        if self.cfg.draw_maps:
+            from . import observability as obs_mod
+            pw = pusch_rx.make_power_map(self.cell)(ul_grids).cpu().numpy()
+            self.last_ul_power = pw
+            for i in range(pw.shape[0]):
+                print(f"[ul pwr] {obs_mod.render_power_map(pw[i])}")
+        # process the DL batch with a hook that collects pending UL grants
+        idx_holder = {"i": 0}
+        collected: List[tuple] = []
+
+        def hook(sf_ctx):
+            i = idx_holder["i"]
+            tti = trackers.tti_of(sf_ctx["sfn"], sf_ctx["sf"])
+            for g in self.ulsche.pop(tti):
+                collected.append((i, sf_ctx["sfn"], sf_ctx["sf"], g))
+            self._work_prach(ul_packed, a + i, sf_ctx["sfn"], sf_ctx["sf"])
+            idx_holder["i"] += 1
+
+        old_hook = self.on_subframe
+        self.on_subframe = hook
+        try:
+            self._phase3(ctx)
+        finally:
+            self.on_subframe = old_hook
+        # finish(k-1) before build(k): table learning / trial budgets that
+        # batch k-1's results update gate batch k's cascade decisions
+        with prof.span("pu_finish_prev"):
+            self._finish_ul_pending()
+        jobs = self._build_ul_jobs(collected)
+        if jobs:
+            # primary pass at few turbo iterations (srsRAN-style early
+            # stop, amortized); CRC failures escalate in finish
+            with prof.span("pu_dispatch"):
+                pb = pusch_rx.dispatch_grants_ul_batch(
+                    ul_grids, self.cell, jobs,
+                    n_iter=self.cfg.turbo_iters)
+            self._ul_pending = (jobs, pb)
+
+    # -- PRACH occasion map, 36.211 Table 5.7.1-2 (format 0, FDD) ---------
+    _PRACH_SF = {0: (1,), 1: (4,), 2: (7,), 3: (1,), 4: (4,), 5: (7,),
+                 6: (1, 6), 7: (2, 7), 8: (3, 8), 9: (1, 4, 7),
+                 10: (2, 5, 8), 11: (3, 6, 9), 12: (0, 2, 4, 6, 8),
+                 13: (1, 3, 5, 7, 9), 14: tuple(range(10)), 15: (9,)}
+    _PRACH_EVEN_SFN = {0, 1, 2, 15}
+
+    def _work_prach(self, ul_packed, i: int, sfn: int, sf: int):
+        """PRACH detection on allowed UL subframes (`work_prach`,
+        `UL_Sniffer_PUSCH.cc:672-713`; config from SIB2 `set_rach_config`,
+        `:657`).  Reads the packed UL IQ on the host: no device sync."""
+        sib2 = self.ulsche.sib2
+        if not sib2:
+            return
+        cfg_idx = int(sib2.get("prach_config_index", 3))
+        if cfg_idx in self._PRACH_EVEN_SFN and sfn % 2:
+            return
+        if sf not in self._PRACH_SF.get(cfg_idx, ()):
+            return
+        from ltesniffer_tpu_torch.phy import prach_roots
+        from . import prach_rx
+        frame = cplx.unpack_i8(ul_packed[0][i], float(ul_packed[1][i]))[0]
+        cp = int(round(self.cell.srate * prach_rx.T_CP))
+        # SIB2 rootSequenceIndex is LOGICAL (36.211 Table 5.7.2-4); the
+        # cell's 64 preambles span consecutive logical roots at the
+        # zeroCorrelationZone's N_cs
+        roots, n_cs, mapped = prach_roots.cell_roots(
+            int(sib2.get("prach_root_seq_index", 0)),
+            int(sib2.get("zero_correlation_zone", 1)))
+        dets = prach_rx.detect(
+            frame[cp:], self.cell, roots=roots, n_cs=n_cs,
+            prach_freq_offset=int(sib2.get("prach_freq_offset", 4)),
+            threshold=8.0)
+        shifts_per_root = (839 // n_cs) if n_cs > 0 else 64
+        for d in dets:
+            ri = roots.index(d.root)
+            self.prach_detections.append(dict(
+                sfn=sfn, sf_idx=sf, root=d.root,
+                preamble=ri * shifts_per_root + d.preamble,
+                peak=d.peak, ta_samples=d.ta_samples,
+                logical_mapped=mapped))
+
+    def _build_ul_jobs(self, collected) -> List:
+        from . import pusch_rx
+        from ltesniffer_tpu_torch.phy import uci as uci_mod
+        jobs = []
+        for gi, (i, sfn, sf, g) in enumerate(collected):
+            known = self.mcs.ul_table_of(g.rnti)
+            if known == trackers.McsTable.UNKNOWN:
+                cascade = list(self._CASCADE)
+                if not self.mcs.ul_trial_budget_ok(g.rnti):
+                    # trial budget exhausted: default table only until a
+                    # success learns the real one
+                    cascade = cascade[:1]
+            else:
+                cascade = [(self._TNAME[known], known)]
+            # UCI config: ACK count matched from the DCI0 subframe's DL
+            # DCIs, beta offsets from the UE-config DB, RI presence from
+            # the UE's transmission mode (`UL_Sniffer_PUSCH.cc:429-450`:
+            # TM3/4 report rank; aperiodic CSI requests add it too)
+            ue_cfg = self.mcs.ue_config.get(g.rnti, trackers.UeConfig())
+            ri_len = 1 if (ue_cfg.tm in (3, 4) or g.cqi_request) else 0
+            # Q' sizes from the TB's INITIAL grant (36.212 5.2.2.6): an
+            # adaptive retransmission keeps the first allocation's dims
+            init_prb, init_mcs = self.ul_hist.initial_dims(
+                g.rnti, g.ndi, g.n_prb, g.mcs)
+            tried = set()
+            for order, (tname, tenum) in enumerate(cascade):
+                qm, i_tbs = tables.ul_mcs_to_qm_itbs(g.mcs, tname)
+                if i_tbs < 0:
+                    continue
+                tbs = tables.tbs_lookup(i_tbs, g.n_prb)
+                if (qm, tbs) in tried:   # identical decode -> skip variant
+                    continue
+                tried.add((qm, tbs))
+                _, init_itbs = tables.ul_mcs_to_qm_itbs(init_mcs, tname)
+                init_tbs = (tables.tbs_lookup(init_itbs, init_prb)
+                            if init_itbs >= 0 else tbs)
+                n_ri, n_ack = uci_mod.uci_symbol_counts(
+                    g.nof_ack, ri_len, ue_cfg.uci_offset_ack,
+                    ue_cfg.uci_offset_ri, init_prb, init_tbs,
+                    n_prb_current=g.n_prb)
+                n_cqi = 0
+                if g.cqi_request:
+                    # aperiodic CQI rides this PUSCH: subband-HL payload
+                    # (the reference enables it on every cqi_request,
+                    # `UL_Sniffer_PUSCH.cc:437-444`); cqi_mode 0 from the
+                    # UE config selects wideband-only sizing
+                    o_cqi = uci_mod.aperiodic_cqi_bits(
+                        self.cell.n_prb,
+                        wideband_only=ue_cfg.cqi_mode == 0)
+                    n_cqi = uci_mod.cqi_q_prime(
+                        o_cqi, ue_cfg.uci_offset_cqi, init_prb, init_tbs,
+                        n_ri_syms=n_ri, n_prb_current=g.n_prb)
+                jobs.append(pusch_rx.UlGrantJob(
+                    b=i, sf_idx=sf, rnti=g.rnti, prb_start=g.prb_start,
+                    n_prb=g.n_prb, qm=qm, tbs=tbs,
+                    cyclic_shift_cfg=self.cyclic_shift_cfg,
+                    dmrs_field=g.dmrs_cs, n_ri_syms=n_ri, n_ack_syms=n_ack,
+                    n_cqi_syms=n_cqi,
+                    tag=dict(gi=gi, order=order, tenum=tenum, sfn=sfn,
+                             sf=sf, g=g, known=known)))
+        return jobs
+
+    def _finish_ul(self, jobs, res):
+        """Pick each grant's winning table variant (first CRC pass in
+        cascade order, else the first trial), then stats/pcap/api — the
+        per-grant tail of the reference's `decode` (`:452-583`)."""
+        by_grant: Dict[int, List[tuple]] = {}
+        for job, r in zip(jobs, res):
+            by_grant.setdefault(job.tag["gi"], []).append((job, r))
+        for gi in sorted(by_grant):
+            variants = sorted(by_grant[gi], key=lambda t: t[0].tag["order"])
+            job, r = next(((j, x) for j, x in variants if x.crc_ok),
+                          variants[0])
+            t = job.tag
+            g = t["g"]
+            sfn, sf = t["sfn"], t["sf"]
+            if r.crc_ok and t["known"] == trackers.McsTable.UNKNOWN:
+                self.mcs.learn_ul_table(g.rnti, t["tenum"])
+            elif not r.crc_ok and t["known"] == trackers.McsTable.UNKNOWN:
+                self.mcs.note_ul_trial_fail(g.rnti)
+            st = self.mcs.stat_ul(g.rnti)
+            st.last_seen_tti = trackers.tti_of(sfn, sf)
+            if r.crc_ok:
+                st.success += 1
+            elif r.snr_db >= 1.0:  # UL stats gate (`UL_Sniffer_PUSCH.cc:572`)
+                st.fail += 1
+            payload = None
+            if r.crc_ok:
+                payload = np.packbits(r.tb_bits).tobytes()
+                if self.pcap:
+                    self.pcap.write_pdu(payload, rnti=g.rnti,
+                                        direction=pcap_mod.DIRECTION_UPLINK,
+                                        sfn=sfn, sf_idx=sf, crc_ok=True)
+                if self.api is not None:
+                    self._api_ul(g.rnti, payload, sfn, sf)
+            self.ul_results.append(AcceptedPusch(
+                rnti=g.rnti, sfn=sfn, sf_idx=sf, crc_ok=r.crc_ok,
+                tbs=r.tbs, payload=payload, snr_db=r.snr_db, ta_us=r.ta_us,
+                table=t["tenum"], from_rar=g.from_rar))
+
+    def _api_ul(self, rnti: int, payload: bytes, sfn: int, sf: int):
+        try:
+            subs = mac_mod.parse_mac_pdu(payload, uplink=True)
+        except Exception:
+            return
+        for s in subs:
+            if s.lcid == mac_mod.LCID_CCCH:
+                self.api.on_ul_ccch(rnti, s.payload, sfn, sf)
+            elif s.lcid in (1, 2):   # SRB1/SRB2 DCCH: RLC AM + PDCP framing
+                before = self._api_events(rnti)
+                for cand in mac_mod.rlc_pdcp_rrc_sdu(s.payload):
+                    self.api.on_ul_dcch(rnti, cand, sfn, sf)
+                    if self._api_events(rnti) > before:
+                        break

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ltesniffer_tpu_torch.phy import crc, pdsch as pdsch_mod, sequences, turbo as turbo_mod
+from ltesniffer_tpu_torch.phy import uci as uci_mod
 from ltesniffer_tpu_torch.phy.params import CellConfig
 from ltesniffer_tpu_torch.kernels import chest, demapper, turbo as kturbo
 from ltesniffer_tpu_torch.kernels.cplx import const
@@ -500,7 +501,33 @@ def _crc_pack(bits, K: int):
 
 
 @functools.lru_cache(maxsize=512)
-def _derm_turbo_static_fn(K: int, F: int, laps: int, rv: int, n_iter: int):
+def _uci_src_map(EB: int, src_key: tuple):
+    """UL UCI data-cell map for one window: (SRC (EB,) int64 row positions,
+    clamped to 0 where unused; SRC_OK (EB,) bool).
+
+    src_key = ("uci", m_sc, qm, n_ri, n_ack, n_cqi, off0): CQI cells head
+    the multiplexed stream, RI cells are removed from the data cells, ACK
+    cells read zero (punctures), and the window starts off0 LLRs into the
+    remaining stream (36.212 5.2.2.8).  Positions lie below 12*m_sc*qm,
+    the row's own width."""
+    _, m_sc, qm, n_ri, n_ack, n_cqi, off0 = src_key
+    _, ack_cells = uci_mod.uci_positions(m_sc, qm, n_ri, n_ack)
+    data_cells = uci_mod.data_group_map(m_sc, n_ri)
+    cell_src = (data_cells[:, None] * qm + np.arange(qm)).astype(np.int64)
+    ack = np.zeros(12 * m_sc, bool)
+    ack[ack_cells] = True
+    cell_src[ack[data_cells]] = -1       # ACK punctures read zero
+    rel = cell_src[n_cqi:].reshape(-1)
+    SRC = np.full(EB, -1, np.int64)
+    n_av = max(0, min(EB, len(rel) - off0))
+    SRC[:n_av] = rel[off0:off0 + n_av]
+    SRC_OK = SRC >= 0
+    return np.where(SRC_OK, SRC, 0), SRC_OK
+
+
+@functools.lru_cache(maxsize=512)
+def _derm_turbo_static_fn(K: int, F: int, laps: int, rv: int, n_iter: int,
+                          src_key: tuple = ("lin",)):
     """Finisher for one code-block-size group: window select +
     de-rate-match + filler LLRs + (HARQ prior add) + turbo decode + CB
     CRC24B + bit packing.
@@ -508,6 +535,14 @@ def _derm_turbo_static_fn(K: int, F: int, laps: int, rv: int, n_iter: int):
     The de-rate-match runs as constant index maps (fold the E LLRs over
     circular-buffer laps -> rotate by the rv start -> inverse sub-block
     permutation).  The exact E and each row's bit offset ride as data.
+
+    src_key selects the per-row LLR window within its rows-matrix row:
+      ("lin",)                      contiguous slice at `off` (every DL
+                                    caller, and PUSCH without UCI)
+      ("uci", m_sc, qm, n_ri, n_ack, n_cqi, off0)
+                                    the PUSCH data cells around the UCI
+                                    (`_uci_src_map`); `off` is unused, the
+                                    offset is folded into the map
 
     (rows_mat (T, Wm), rows (n,), e_true (n,), off int [, prior (n,3,K+4)])
       -> (fused (n*(1+Wk),) int64 flat [crc_rem | packed bits] rows,
@@ -518,16 +553,23 @@ def _derm_turbo_static_fn(K: int, F: int, laps: int, rv: int, n_iter: int):
     k0 = turbo_mod.rv_start(K, rv)
     s0 = int(np.searchsorted(nonnull_pos, k0)) % L
     EB = laps * L
+    lin = src_key[0] == "lin"
+    if not lin:
+        SRC, SRC_OK = _uci_src_map(EB, src_key)
     dec = kturbo.make_decoder(K, n_iter)
 
     def run(rows_mat, rows, e_true, off: int, prior=None):
         dev = rows_mat.device
         n = rows.shape[0]
         win = rows_mat[rows]                              # (n, Wm)
-        winp = torch.nn.functional.pad(win, (0, EB))
-        off = max(0, min(int(off), winp.shape[1] - EB))   # as a clamped slice
-        x = winp[:, off:off + EB]
         ok = torch.arange(EB, device=dev)[None, :] < e_true[:, None]
+        if lin:
+            winp = torch.nn.functional.pad(win, (0, EB))
+            off = max(0, min(int(off), winp.shape[1] - EB))  # clamped slice
+            x = winp[:, off:off + EB]
+        else:
+            x = win[:, const(SRC, dev)]                   # (n, EB)
+            ok = ok & const(SRC_OK, dev)[None, :]
         x = torch.where(ok, x, torch.zeros((), dtype=x.dtype, device=dev))
         f = x.reshape(n, laps, L).sum(dim=1) if laps > 1 else x
         acc = torch.roll(f, s0, dims=1)

@@ -254,3 +254,77 @@ def add_pdsch_mimo(g: np.ndarray, cell: CellConfig, sf_idx: int, cfi: int,
     flat = g.reshape(g.shape[0], -1)
     for p in range(n_ports):
         flat[p, re_idx] = ports[p]
+
+
+# ---------------------------------------------------------------------------
+# Uplink (PUSCH) transmitter — test side
+# ---------------------------------------------------------------------------
+def ul_channel_interleave(bits: np.ndarray, qm: int) -> np.ndarray:
+    """PUSCH channel interleaver, no UCI (36.212 5.2.2.8): Qm-bit groups
+    written row-wise into (R', 12), read column-wise."""
+    groups = bits.reshape(-1, qm)
+    Hp = len(groups)
+    Rp = Hp // 12
+    mat = groups.reshape(Rp, 12, qm)
+    return np.transpose(mat, (1, 0, 2)).reshape(-1)
+
+
+def build_ul_subframe(cell: CellConfig, sf_idx: int, grants,
+                      cyclic_shift_cfg: int = 0) -> np.ndarray:
+    """Build a (1, 14, n_sc) UL TX grid with PUSCH transmissions.
+
+    grants: list of dicts with rnti, prb_start, n_prb, qm, tb_bits, rv,
+    dmrs_field (3-bit DCI0 cyclic shift), and optionally n_ri_syms /
+    n_ack_syms (UCI symbol groups: RI displaces data, ACK punctures).
+    """
+    from ltesniffer_tpu_torch.phy import pdsch as pdsch_mod
+    from ltesniffer_tpu_torch.phy import sequences as seq_mod
+    from ltesniffer_tpu_torch.phy import ul_dmrs, uci
+    from ltesniffer_tpu_torch.kernels import scfdma
+    g = np.zeros((1, N_SYM_SF, cell.n_sc), dtype=np.complex64)
+    rng_uci = np.random.default_rng(1234)
+    for gr in grants:
+        m_sc = 12 * gr["n_prb"]
+        k0 = 12 * gr["prb_start"]
+        qm = gr["qm"]
+        n_ri = gr.get("n_ri_syms", 0)
+        n_ack = gr.get("n_ack_syms", 0)
+        n_cqi = gr.get("n_cqi_syms", 0)
+        G = (12 * m_sc - n_ri - n_cqi) * qm
+        coded, _ = encode_pdsch_bits(gr["tb_bits"], qm, G, gr.get("rv", 0))
+        if n_ri or n_ack or n_cqi:
+            cells = uci.data_group_map(m_sc, n_ri)
+            ri_cells, ack_cells = uci.uci_positions(m_sc, qm, n_ri, n_ack)
+            mat = np.zeros((m_sc * 12, qm), dtype=np.uint8)
+            # CQI coded bits head the multiplexed stream (36.212 5.2.2.8)
+            for c in cells[:n_cqi]:
+                mat[c] = rng_uci.integers(0, 2, qm)
+            mat[cells[n_cqi:]] = coded.reshape(-1, qm)
+            for c in ri_cells:      # RI symbols (content irrelevant to data)
+                mat[c] = rng_uci.integers(0, 2, qm)
+            for c in ack_cells:     # ACK punctures the data at these cells
+                mat[c] = rng_uci.integers(0, 2, qm)
+            grp = mat.reshape(m_sc, 12, qm)
+            inter = np.transpose(grp, (1, 0, 2)).reshape(-1)
+            G = 12 * m_sc * qm
+        else:
+            inter = ul_channel_interleave(coded, qm)
+        c_init = pdsch_mod.scrambling_cinit(gr["rnti"], 0, sf_idx,
+                                            cell.n_id_cell)
+        bits = inter ^ seq_mod.gold_sequence(c_init, G)
+        syms = modulation.modulate(bits, qm)
+        spread = scfdma.dft_precode_np(syms, m_sc).reshape(12, m_sc)
+        for ci, l in enumerate(scfdma.DATA_SYMS):
+            g[0, l, k0:k0 + m_sc] = spread[ci]
+        for slot_i, l in enumerate(scfdma.DMRS_SYM):
+            ns = 2 * sf_idx + slot_i
+            g[0, l, k0:k0 + m_sc] = ul_dmrs.pusch_dmrs(
+                gr["n_prb"], ns, cell.n_id_cell, cyclic_shift_cfg,
+                gr.get("dmrs_field", 0))
+    return g
+
+
+def ul_subframe_iq(cell: CellConfig, rx_grid: np.ndarray) -> np.ndarray:
+    """(RX, 14, n_sc) UL grids -> (RX, sf_len) SC-FDMA time samples."""
+    from ltesniffer_tpu_torch.kernels import scfdma
+    return np.stack([scfdma.modulate_ul_np(gr, cell) for gr in rx_grid])

@@ -7,7 +7,7 @@ validated like the reference validates against recorded traces.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -167,3 +167,92 @@ class ScenarioBuilder:
 
     def stream(self) -> np.ndarray:
         return np.concatenate(self.subframes).astype(np.complex64)
+
+
+@dataclasses.dataclass
+class UlTx:
+    """One scheduled UL transport block (DCI0 at t, PUSCH at t+4)."""
+    rnti: int
+    tb_bits: np.ndarray
+    mcs: int = 6                 # QPSK region: all UL tables agree
+    prb_start: int = 0
+    n_prb: int = 8
+    ndi: int = 1
+
+
+class DualScenarioBuilder:
+    """Dual-carrier UL-mode stream: the DL carrier carries the PDCCH with
+    format-0 grants; each grant's PUSCH appears on the UL carrier 4
+    subframes later (the reference's ULSchedule t+4 rule,
+    `ULSchedule.cc:112`)."""
+
+    def __init__(self, cell: CellConfig, cfi: int = 2, noise: float = 0.04,
+                 ul_noise: float = 0.03, seed: int = 0):
+        self.cell = cell
+        self.cfi = cfi
+        self.noise = noise
+        self.ul_noise = ul_noise
+        self.rng = np.random.default_rng(seed)
+        self.h = encoder.flat_channel(cell, cell.nof_rx_ant, self.rng)
+        self.dl_subframes: List[np.ndarray] = []
+        self.ul_subframes: List[np.ndarray] = []
+        self._pending: Dict[int, list] = {}   # stream index -> UL grants
+
+    def _nof_cce(self):
+        from ltesniffer_tpu_torch.phy import grid as grid_mod
+        return grid_mod.control_region(self.cell, self.cfi)[
+            "nof_pdcch_regs"] // 9
+
+    def add_subframe(self, sf_idx: int, ul_txs: Sequence[UlTx] = (),
+                     strict: bool = True) -> int:
+        cell = self.cell
+        j = len(self.dl_subframes)
+        tx_dcis = []
+        used_cce = set()
+        placed = 0
+        for t in ul_txs:
+            qm, itbs = tables.ul_mcs_to_qm_itbs(t.mcs)
+            tbs = tables.tbs_lookup(itbs, t.n_prb)
+            cands = search_space.ue_candidates(t.rnti, sf_idx,
+                                               self._nof_cce())
+            loc = None
+            for (l, nc) in cands:
+                span = set(range(nc, nc + (1 << l)))
+                if not span & used_cce:
+                    loc = (l, nc)
+                    used_cce.update(span)
+                    break
+            if loc is None:
+                if strict:
+                    raise ValueError("no free CCEs")
+                continue
+            d = dci_mod.Dci(fmt="0", rnti=t.rnti, fields=dict(
+                flag0_1a=0, hopping=0,
+                riv=ra.start_len_to_riv(t.prb_start, t.n_prb, cell.n_prb),
+                mcs=t.mcs, ndi=t.ndi, tpc=0, dmrs_cs=2, cqi_request=0))
+            tx_dcis.append(encoder.TxDci(dci=d, L=loc[0], ncce=loc[1]))
+            tb = np.zeros(tbs, dtype=np.uint8)
+            bits = np.asarray(t.tb_bits, dtype=np.uint8).reshape(-1)
+            tb[:min(tbs, len(bits))] = bits[:tbs]
+            self._pending.setdefault(j + 4, []).append(dict(
+                rnti=t.rnti, prb_start=t.prb_start, n_prb=t.n_prb,
+                qm=qm, tb_bits=tb, dmrs_field=2))
+            placed += 1
+        g = encoder.build_control_subframe(cell, sf_idx, self.cfi, tx_dcis)
+        rxg = encoder.apply_channel(g, self.h, self.noise, self.rng)
+        self.dl_subframes.append(encoder.subframe_iq(cell, rxg)[0])
+        grants = self._pending.pop(j, [])
+        if grants:
+            ug = encoder.build_ul_subframe(cell, sf_idx, grants)
+        else:
+            ug = np.zeros((1, 14, cell.n_sc), np.complex64)
+        un = ug + self.ul_noise / np.sqrt(2) * (
+            self.rng.standard_normal(ug.shape)
+            + 1j * self.rng.standard_normal(ug.shape))
+        self.ul_subframes.append(
+            encoder.ul_subframe_iq(cell, un.astype(np.complex64))[0])
+        return placed
+
+    def streams(self) -> Tuple[np.ndarray, np.ndarray]:
+        return (np.concatenate(self.dl_subframes).astype(np.complex64),
+                np.concatenate(self.ul_subframes).astype(np.complex64))

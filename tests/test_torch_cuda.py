@@ -159,3 +159,85 @@ def test_decode_grant_mimo_on_card_equals_host(card):
     for q in (0, 1):
         assert res["cpu"][q].crc_ok and res[str(card)][q].crc_ok
         np.testing.assert_array_equal(res[str(card)][q].tb_bits, sent[q])
+
+
+@pytest.mark.cuda
+def test_fused_decode_at_ul_shape_equals_plain(card):
+    """The UL cell's code blocks (K = 832, MCS 6 on 8 PRB), n_iter 2 (the
+    primary pass) and 12 (the escalation), with and without a HARQ prior:
+    the fused kernel's bits and LLRs equal the plain version's."""
+    rng = np.random.default_rng(832)
+    sent, llr, prior = _coded(832, 64, rng)
+    for n_iter in (2, 12):
+        for d in (llr, llr + prior):
+            want_bits, want_llr = turbo.make_decoder(832, n_iter)(
+                torch.from_numpy(d))
+            n0 = turbo_decode.LAUNCHES["turbo_decode"]
+            bits, out = turbo.make_decoder(832, n_iter)(
+                torch.from_numpy(d).to(card))
+            torch.cuda.synchronize()
+            assert turbo_decode.LAUNCHES["turbo_decode"] == n0 + 1
+            np.testing.assert_array_equal(bits.cpu().numpy(),
+                                          want_bits.numpy())
+            torch.testing.assert_close(out.cpu(), want_llr, rtol=0, atol=0)
+    np.testing.assert_array_equal(bits.cpu().numpy(), sent)
+
+
+@pytest.mark.cuda
+def test_ul_frontend_and_equalizer_on_card_match_cpu(card):
+    """The UL frontend (packed-int8 ingest) and `_eq_batch_ul_fn` on the
+    card against the same functions on the host: grids and LLRs within
+    rtol 1e-4 plus atol 1e-4 of the peak, snr_db within 1e-3 dB, ta_us
+    within 1e-4 us (sums in another order on the card); the grants decode
+    to the bits that were sent on both."""
+    from ltesniffer_tpu_torch.kernels import cplx
+    from ltesniffer_tpu_torch.phy import pdsch as pdsch_mod, tables
+    from ltesniffer_tpu_torch.phy.params import CellConfig
+    from ltesniffer_tpu_torch.sniffer import pusch_rx
+    from ltesniffer_tpu_torch.testing import encoder
+    cell = CellConfig(n_id_cell=147, n_prb=50, nof_ports=2, nof_rx_ant=1)
+    rng = np.random.default_rng(21)
+    grants = []
+    for k, (n_prb, qm, itbs) in enumerate(((8, 2, 6), (10, 4, 12))):
+        tbs = tables.tbs_lookup(itbs, n_prb)
+        grants.append(dict(rnti=0x4100 + k, prb_start=2 + 15 * k,
+                           n_prb=n_prb, qm=qm, tbs=tbs, dmrs_field=k,
+                           tb_bits=rng.integers(0, 2, tbs).astype(np.uint8)))
+    g = encoder.build_ul_subframe(cell, 3, grants)
+    g = g + 0.02 / np.sqrt(2) * (rng.standard_normal(g.shape)
+                                 + 1j * rng.standard_normal(g.shape))
+    iq = encoder.ul_subframe_iq(cell, g.astype(np.complex64))
+    words, scales = cplx.to_i8_packed(iq[None])
+    w64 = torch.from_numpy(cplx.view_i64(words))
+    sc = torch.from_numpy(scales)
+    fe = pusch_rx.make_ul_frontend(cell)
+    grids = {dev: fe.run_i8c64(w64.to(dev), sc.to(dev))
+             for dev in ("cpu", card)}
+    want = grids["cpu"].numpy()
+    peak = float(np.abs(want).max())
+    np.testing.assert_allclose(grids[card].cpu().numpy(), want, rtol=1e-4,
+                               atol=1e-4 * peak)
+    for gr in grants:
+        cinit = pdsch_mod.scrambling_cinit(gr["rnti"], 0, 3, cell.n_id_cell)
+        dmrs = pusch_rx._dmrs_ri(gr["n_prb"], 3, cell.n_id_cell, 0,
+                                 gr["dmrs_field"])
+        run = pusch_rx._eq_batch_ul_fn(cell, gr["n_prb"], gr["qm"])
+        out = {}
+        for dev in ("cpu", card):
+            t = lambda x: torch.tensor(x, device=dev)      # noqa: E731
+            out[dev] = [x.cpu().numpy() for x in run(
+                grids[dev], t([0]), t([12 * gr["prb_start"]]),
+                torch.from_numpy(dmrs[None]).to(dev), t([cinit]))]
+        llr_peak = float(np.abs(out["cpu"][0]).max())
+        np.testing.assert_allclose(out[card][0], out["cpu"][0], rtol=1e-4,
+                                   atol=1e-4 * llr_peak)
+        np.testing.assert_allclose(out[card][1], out["cpu"][1], rtol=0,
+                                   atol=1e-3)
+        np.testing.assert_allclose(out[card][2], out["cpu"][2], rtol=0,
+                                   atol=1e-4)
+        for dev in ("cpu", card):
+            res = pusch_rx.decode_grant_ul(
+                grids[dev][0], cell, 3, gr["rnti"], gr["prb_start"],
+                gr["n_prb"], gr["qm"], gr["tbs"], dmrs_field=gr["dmrs_field"])
+            assert res.crc_ok
+            np.testing.assert_array_equal(res.tb_bits, gr["tb_bits"])

@@ -4,9 +4,12 @@
   `ltesniffer_tpu` (but not `ltesniffer_tpu_torch`), every module of the
   port and chip_smoke.py import.
 * The port's scenario generator reproduces the JAX package's IQ (the
-  golden scenario, and the first 4 loaded-cell subframes) within 1e-5.
-* `convert.config_from_reference` rebuilds the reference's configuration,
-  and the port's constant tables equal the reference's numpy arrays.
+  golden scenario, the first 4 loaded-cell subframes, the UL golden's
+  dual-carrier streams and the first 6 subframes of the UL cell) within
+  1e-5.
+* `convert.config_from_reference` rebuilds the reference's configuration
+  (the DL golden's and the UL golden's), and the port's constant tables
+  equal the reference's numpy arrays.
 """
 import dataclasses
 import os
@@ -33,10 +36,11 @@ from ltesniffer_tpu_torch.phy import conv, crc, sequences, tables
 from ltesniffer_tpu_torch.phy import turbo as turbo_host
 from ltesniffer_tpu_torch.phy.params import CellConfig
 from ltesniffer_tpu_torch.sniffer import core, pdcch_rx
-from ltesniffer_tpu_torch.testing import loaded_cell
+from ltesniffer_tpu_torch.testing import loaded_cell, ul_cell
 
 from tests import test_golden_replay as golden
 from tests.test_torch_core import ref_loaded_stream
+from tests.test_torch_ul_core import ref_ul_streams
 
 torch.set_num_threads(1)
 
@@ -68,8 +72,17 @@ _CHILD = textwrap.dedent("""
     importlib.import_module("chip_smoke")
     bad = sorted(m for m in sys.modules if blocked(m))
     assert not bad, bad
+    print(" ".join(names))
     print(len(names))
 """)
+
+# the uplink's modules, each of which must import without JAX
+UL_MODULES = {"ltesniffer_tpu_torch.phy." + m for m in (
+    "ul_dmrs", "uci", "prach_roots", "prach_root_gen")} | {
+    "ltesniffer_tpu_torch.kernels.scfdma",
+    "ltesniffer_tpu_torch.sniffer.pusch_rx",
+    "ltesniffer_tpu_torch.sniffer.prach_rx",
+    "ltesniffer_tpu_torch.testing.ul_cell"}
 
 
 def test_port_imports_without_jax_or_reference():
@@ -77,7 +90,9 @@ def test_port_imports_without_jax_or_reference():
                        capture_output=True, text=True, timeout=300,
                        cwd=REPO)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.strip().splitlines()[-1]) >= 40
+    lines = r.stdout.strip().splitlines()
+    assert int(lines[-1]) >= 61
+    assert UL_MODULES <= set(lines[-2].split())
 
 
 def test_refusal_is_effective():
@@ -104,6 +119,43 @@ def test_generator_reproduces_loaded_cell_iq():
     want, want_placed = ref_loaded_stream(4)
     assert placed == want_placed == len(truth) > 40
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_generator_reproduces_ul_golden_iq():
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    _, got_dl, got_ul = chip_smoke.ul_golden_scenario()
+    want_dl, want_ul = golden._build_dual()
+    for got, want in ((got_dl, want_dl), (got_ul, want_ul)):
+        assert got.dtype == want.dtype == np.complex64
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_generator_reproduces_ul_cell_iq():
+    dl, ul, placed, truth = ul_cell.build_streams(n_sf=6)
+    want_dl, want_ul, want_placed = ref_ul_streams(6)
+    assert placed == want_placed > 5 * ul_cell.GRANTS
+    # the PUSCH of the DCI0s placed in subframes 0 and 1 land in 4 and 5
+    assert 0 < len(truth) <= 2 * ul_cell.GRANTS
+    assert {k for k, _, _ in truth} == {4, 5}
+    np.testing.assert_allclose(dl, want_dl, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ul, want_ul, rtol=0, atol=1e-5)
+
+
+def test_ul_golden_config_from_reference():
+    """The UL golden's reference configuration (tests/test_golden_replay.py
+    `_run_ul`) converts, and the port's UL core takes it."""
+    ref = ref_core.SnifferConfig(cell=golden.CELL, batch_size=8,
+                                 pcap_path=None, acquire_sfn=False)
+    cfg = convert.config_from_reference(dataclasses.asdict(ref),
+                                        device="cpu")
+    assert cfg.cell == CellConfig(n_id_cell=199, n_prb=50, nof_ports=2,
+                                  nof_rx_ant=1)
+    for f in dataclasses.fields(cfg):
+        if f.name not in ("cell", "device"):
+            assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
+    c = core.LTESnifferCoreUL(cfg, cyclic_shift_cfg=2)
+    assert c.cyclic_shift_cfg == 2 and c.device.type == "cpu"
 
 
 def test_config_from_reference():
@@ -133,6 +185,18 @@ def test_constant_tables_equal():
     for g, w in zip(ofdm._dft_mats(cell.n_fft, cell.n_sc),
                     ref_ofdm._dft_mats(cell.n_fft, cell.n_sc)):
         np.testing.assert_array_equal(g, np.asarray(w, np.float32))
+    # SC-FDMA DFT and per-grant IDFT matrices (rounded the same way)
+    from ltesniffer_tpu.kernels import scfdma as ref_scfdma
+    from ltesniffer_tpu_torch.kernels import scfdma
+    for g, w in zip(scfdma._ul_dft_mats(cell.n_fft, cell.n_sc)
+                    + scfdma._idft_mats(96) + scfdma._idft_mats(1200),
+                    ref_scfdma._ul_dft_mats(cell.n_fft, cell.n_sc)
+                    + ref_scfdma._idft_mats(96)
+                    + ref_scfdma._idft_mats(1200)):
+        np.testing.assert_array_equal(g, np.asarray(w, np.float32))
+    np.testing.assert_array_equal(
+        scfdma.ul_subcarrier_bins(cell.n_fft, cell.n_sc),
+        ref_scfdma.ul_subcarrier_bins(cell.n_fft, cell.n_sc))
     # CRS maps and interpolation weights
     for g, w in zip(chest.crs_constants(cell) + chest.interp_matrices(cell),
                     ref_chest.crs_constants(ref_cell)
