@@ -58,7 +58,35 @@ exit) if any phase fails:
    and no pass launch in this run; sf/s (first and warm pass), the host
    spans and reads; the UCI grant (HARQ-ACK + RI + aperiodic CQI on one
    PUSCH) decodes to the transmitted TB.  6b: a profiled UL pass.
-7. the `kernels` JSON line, then the result line.
+7. the live entry point (testing/stream_cell.py; records made by the JAX
+   package on the CPU over the same streams):
+   7a. the DL stream: the loaded cell behind a 1000-sample noise lead,
+       mixed by a 300 Hz CFO, with 2.5 subframes cut at subframe 200, in
+       blocks of 3 subframes + 777 samples through
+       `LTESnifferCore.run_source` with the CLI's defaults.  The loaded
+       cell as it is cannot be acquired (its PDSCH fills the PSS symbol;
+       both packages' cell search fails the same way, which is checked);
+       the stream run takes the same cell with subframes 0 and 5 free of
+       grants.  Held against dl_stream_expected.json: equal accepted-DCI
+       list with its SFN labels, CRC-ok flags within 0.5 %, equal
+       subframes / resyncs (>= 1) / sync losses and segments, fused
+       launches.  First and warm sf/s beside `run_packed`'s warm sf/s on
+       the aligned loaded cell at the same batch; the host times of
+       `find_cell`, of one tracker pass over the stream, of one
+       `_reacquire` and of `run_source`'s framing with the segments
+       dropped.
+   7b. live mode on the same stream: kept + skipped = 7a's framed count;
+       the share of a 1000 sf/s air the port keeps.
+   7c. the UL cell's two carriers behind noise leads, the UL 37 samples
+       late, through `LTESnifferCoreUL.run_dual_source(ul_skew=37)`, held
+       against ul_stream_expected.json as phase 6 holds its run.
+   7d. the golden scenario through `run_samples` with ingest i16 and f32
+       (depth 3) and i8 at pipeline depths 1 and 2: each pcap's sha256
+       equals the JAX package's (ingest_expected.json).
+   7e. `python -m ltesniffer_tpu_torch.cli ... --sync` in a subprocess on
+       a file of the golden stream behind a 777-sample lead: exit 0, pcap
+       sha256 and stats counts equal the JAX CLI's (cli_expected.json).
+8. the `kernels` JSON line, then the result line.
 
 Imports torch, numpy, the standard library and the port only — no JAX.
 Writes only under a temporary directory and ltesniffer_tpu_torch/_build/.
@@ -81,6 +109,14 @@ EXPECTED_MIMO = os.path.join(REPO, "ltesniffer_tpu_torch", "testing",
                              "mimo_expected.json")
 EXPECTED_UL = os.path.join(REPO, "ltesniffer_tpu_torch", "testing",
                            "ul_expected.json")
+EXPECTED_DL_STREAM = os.path.join(REPO, "ltesniffer_tpu_torch", "testing",
+                                  "dl_stream_expected.json")
+EXPECTED_UL_STREAM = os.path.join(REPO, "ltesniffer_tpu_torch", "testing",
+                                  "ul_stream_expected.json")
+EXPECTED_INGEST = os.path.join(REPO, "ltesniffer_tpu_torch", "testing",
+                               "ingest_expected.json")
+EXPECTED_CLI = os.path.join(REPO, "ltesniffer_tpu_torch", "testing",
+                            "cli_expected.json")
 MIMO_BATCH = 32                  # as the expected record was made
 MIMO_N_ITER = 8                  # decode_grant_mimo's turbo iterations
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
@@ -127,33 +163,6 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 # scenarios (the port's own generator)
 # ---------------------------------------------------------------------------
-def golden_scenario():
-    """tests/test_golden_replay.py:_build_stream, through the port."""
-    from ltesniffer_tpu_torch.mac_rrc import mac, rrc
-    from ltesniffer_tpu_torch.phy.params import CellConfig
-    from ltesniffer_tpu_torch.testing import scenario
-    cell = CellConfig(n_id_cell=199, n_prb=50, nof_ports=2, nof_rx_ant=1)
-    sb = scenario.ScenarioBuilder(cell, seed=20260817, noise=0.04)
-    sib2 = rrc.encode_sib2(rrc.Sib2UlConfig(cyclic_shift=2))
-    ue_pdu = mac.build_mac_pdu([mac.MacSubPdu(lcid=3,
-                                              payload=b"golden-ue-data")])
-    pg = rrc.encode_paging([rrc.PagingRecord(s_tmsi=0x1122334455)])
-    for j in range(20):
-        sf = j % 10
-        txs = []
-        if sf == 5:
-            txs.append(scenario.DlTx(rnti=0xFFFF, mac_pdu=sib2, n_prb=6))
-        if sf == 0:
-            txs.append(scenario.DlTx(rnti=0xFFFE, mac_pdu=pg, n_prb=6,
-                                     prb_start=40))
-        if j >= 2:
-            txs.append(scenario.DlTx(rnti=0x4D2, mac_pdu=ue_pdu, n_prb=10,
-                                     prb_start=12, ndi=j % 2,
-                                     harq_pid=j % 8))
-        sb.add_subframe(sf, txs)
-    return cell, sb.stream(), sb.truth
-
-
 def ul_golden_scenario():
     """tests/test_golden_replay.py:_build_dual, through the port:
     (cell, DL stream, UL stream)."""
@@ -366,7 +375,8 @@ def time_bcjr(K: int, B: int, device) -> dict:
 # ---------------------------------------------------------------------------
 def run_golden(device, tmp: str):
     from ltesniffer_tpu_torch.sniffer import core
-    cell, stream, _ = golden_scenario()
+    from ltesniffer_tpu_torch.testing import stream_cell
+    cell, stream, _ = stream_cell.golden_scenario()
     out = os.path.join(tmp, "dl_golden.pcap")
     cfg = core.SnifferConfig(cell=cell, batch_size=8, pcap_path=out,
                              api_mode=0, device=device)
@@ -587,6 +597,143 @@ def run_uci(device):
                              "transmitted TB")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: stream, ingest and CLI
+# ---------------------------------------------------------------------------
+def host_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def run_dl_stream(device, stream, tmp: str, live: bool = False):
+    """The live entry point: `run_source` over the DL stream in blocks of
+    3 subframes + 777 samples, with the CLI's defaults (batch 32, chunks
+    of 256 subframes, SFN from the MIB, i8 ingest).  Returns (core,
+    accepted log, segments handed to run_samples, seconds)."""
+    import torch
+    from ltesniffer_tpu_torch.io import sdr
+    from ltesniffer_tpu_torch.sniffer import core
+    from ltesniffer_tpu_torch.testing import loaded_cell, stream_cell
+    cell = loaded_cell.CELL
+    c = core.LTESnifferCore(core.SnifferConfig(
+        cell=cell, batch_size=stream_cell.BATCH,
+        pcap_path=os.path.join(tmp, "stream.pcap"), live_mode=live,
+        live_buffer_sf=20, device=device))
+    acc, segs = [], []
+
+    def hook(ctx):
+        for a in ctx["accepted"]:
+            acc.append([ctx["sfn"] * 10 + ctx["sf"], int(a.rnti), a.fmt])
+    c.on_subframe = hook
+    inner = c.run_samples
+
+    def run_samples(x, sf_idx0=0):
+        segs.append([len(x) // cell.sf_len, sf_idx0])
+        return inner(x, sf_idx0=sf_idx0)
+    c.run_samples = run_samples
+    t0 = time.perf_counter()
+    c.run_source(sdr.ArraySource(stream, cell.srate,
+                                 chunk_limit=stream_cell.dl_chunk_limit()),
+                 chunk_subframes=stream_cell.CHUNK_SUBFRAMES)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c.close()
+    return c, acc, segs, dt
+
+
+def framing_only_s(device, stream) -> float:
+    """Host seconds of `run_source`'s own work on the DL stream (reads,
+    cell search, tracker with its CFO mixer, tail carry, segment joins)
+    with the segments dropped instead of decoded."""
+    from ltesniffer_tpu_torch.io import sdr
+    from ltesniffer_tpu_torch.sniffer import core
+    from ltesniffer_tpu_torch.testing import loaded_cell, stream_cell
+    cell = loaded_cell.CELL
+    c = core.LTESnifferCore(core.SnifferConfig(
+        cell=cell, batch_size=stream_cell.BATCH, device=device))
+    c.run_samples = lambda x, sf_idx0=0: None
+    t0 = time.perf_counter()
+    c.run_source(sdr.ArraySource(stream, cell.srate,
+                                 chunk_limit=stream_cell.dl_chunk_limit()),
+                 chunk_subframes=stream_cell.CHUNK_SUBFRAMES)
+    return time.perf_counter() - t0
+
+
+def stream_counts(c) -> dict:
+    s = c.summary()
+    return {k: s[k] for k in ("subframes", "resyncs", "sync_losses")}
+
+
+def run_ul_stream(device, dl, ul, tmp: str):
+    """`run_dual_source` over the two carriers, UL content UL_SKEW samples
+    late.  Returns (core, DCI0 log, seconds)."""
+    import torch
+    from ltesniffer_tpu_torch.io import sdr
+    from ltesniffer_tpu_torch.sniffer import core
+    from ltesniffer_tpu_torch.testing import stream_cell, ul_cell
+    cell = ul_cell.CELL
+    c = core.LTESnifferCoreUL(core.SnifferConfig(
+        cell=cell, batch_size=ul_cell.BATCH, acquire_sfn=False,
+        pcap_path=os.path.join(tmp, "ul_stream.pcap"), device=device))
+    dci0 = ul_cell.log_dci0(c)
+    t0 = time.perf_counter()
+    c.run_dual_source(sdr.ArraySource(dl, cell.srate),
+                      sdr.ArraySource(ul, cell.srate),
+                      chunk_subframes=stream_cell.CHUNK_SUBFRAMES,
+                      ul_skew=stream_cell.UL_SKEW)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c.close()
+    return c, dci0, dt
+
+
+def run_ingest(device, tmp: str) -> dict:
+    """The golden scenario through `run_samples` under the card's ingest
+    options: {option key: pcap sha256}."""
+    from ltesniffer_tpu_torch.sniffer import core
+    from ltesniffer_tpu_torch.testing import stream_cell
+    cell, stream, _ = stream_cell.golden_scenario()
+    out = {}
+    for ingest, depth in stream_cell.CHIP_INGEST:
+        path = os.path.join(tmp, f"ingest_{ingest}_{depth}.pcap")
+        c = core.LTESnifferCore(core.SnifferConfig(
+            cell=cell, batch_size=8, pcap_path=path, api_mode=0,
+            ingest=ingest, pipeline_depth=depth, device=device))
+        c.run_samples(stream)
+        c.close()
+        out[stream_cell.ingest_key(ingest, depth)] = hashlib.sha256(
+            open(path, "rb").read()).hexdigest()
+    return out
+
+
+def run_cli(tmp: str) -> tuple:
+    """The CLI as a user runs it, in a subprocess on the card: `--sync`
+    over the golden stream behind a noise lead, written as an IQ file.
+    Returns (pcap sha256, stats without the clock fields, seconds)."""
+    from ltesniffer_tpu_torch.io import iq as iq_mod
+    from ltesniffer_tpu_torch.testing import stream_cell
+    cell, stream, _ = stream_cell.golden_scenario()
+    iq_path = os.path.join(tmp, "golden_lead.iq")
+    iq_mod.write_iq(iq_path, stream_cell.cli_stream(stream))
+    pc, st = os.path.join(tmp, "cli.pcap"), os.path.join(tmp, "cli.json")
+    cmd = [sys.executable, "-m", "ltesniffer_tpu_torch.cli"] + \
+        stream_cell.cli_args(cell, iq_path, pc, st)
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    dt = time.perf_counter() - t0
+    for line in r.stdout.splitlines()[:3]:
+        log(f"  cli: {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"the CLI exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    stats = json.load(open(st))
+    for k in stream_cell.CLI_CLOCK_KEYS:
+        stats.pop(k)
+    return hashlib.sha256(open(pc, "rb").read()).hexdigest(), stats, dt
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -598,8 +745,11 @@ def main() -> int:
     from ltesniffer_tpu_torch import native
     from ltesniffer_tpu_torch.kernels import bcjr, nvcc_build, turbo_decode
     from ltesniffer_tpu_torch.phy import tables, turbo as turbo_host
-    from ltesniffer_tpu_torch.sniffer import pdsch_rx, prof, pusch_rx
+    from ltesniffer_tpu_torch.io import sdr
+    from ltesniffer_tpu_torch.sniffer import core, pdsch_rx, prof, pusch_rx
+    from ltesniffer_tpu_torch.sniffer import sync
     from ltesniffer_tpu_torch.testing import loaded_cell, mimo_cell, ul_cell
+    from ltesniffer_tpu_torch.testing import stream_cell
     device = "cuda"
     kind = torch.cuda.get_device_name(0)
     rng = np.random.default_rng(20260817)
@@ -624,7 +774,7 @@ def main() -> int:
             log(f"  g++ build of csrc/resolver.cpp (native resolver): "
                 f"{builds['native'].result():.2f} s")
         with Phase("scenarios (port generator)"):
-            _, _, golden_truth = golden_scenario()
+            _, _, golden_truth = stream_cell.golden_scenario()
             t0 = time.perf_counter()
             words, scales, placed, loaded_truth = loaded_cell.build_packed()
             log(f"  loaded cell: {loaded_cell.N_SF} subframes, {placed} "
@@ -869,6 +1019,149 @@ def main() -> int:
             run_uci(device)
         with Phase("6b where the UL cell's time goes (profiled pass)"):
             profile_pass(lambda: run_ul(device, ul_dl, ul_ul, tmp)[2])
+        with Phase("7a DL stream (20 MHz, 512 subframes, noise lead, 300 Hz "
+                   "CFO, 2.5-subframe gap) through run_source"):
+            rec_s = json.load(open(EXPECTED_DL_STREAM))
+            cell = loaded_cell.CELL
+            # the loaded cell as it is: acquisition fails in both packages
+            x, _, _ = stream_cell.build_dl_stream(n_sf=13, pdsch_free_sf=())
+            window = x[:12 * cell.sf_len]
+            peak = sync.find_pss(window, cell.n_fft).peak
+            try:
+                core.LTESnifferCore(core.SnifferConfig(
+                    cell=cell, device=device)).run_source(sdr.ArraySource(
+                        window, cell.srate,
+                        chunk_limit=stream_cell.dl_chunk_limit()))
+                acq_err = None
+            except RuntimeError as e:
+                acq_err = str(e)
+            log(f"  loaded cell as it is: find_pss peak {peak:.6f} (record "
+                f"{rec_s['loaded_acquire']['find_pss_peak']:.6f}, threshold"
+                f" 0.3); run_source: {acq_err!r}")
+            if acq_err != rec_s["loaded_acquire"]["error"] or abs(
+                    peak - rec_s["loaded_acquire"]["find_pss_peak"]) > 1e-6:
+                raise AssertionError("the loaded cell's acquisition differs "
+                                     "from the record")
+            t0 = time.perf_counter()
+            stream, s_placed, _ = stream_cell.build_dl_stream()
+            log(f"  stream (subframes {stream_cell.PDSCH_FREE_SF} without "
+                f"grants): {len(stream)} samples, {s_placed} placed TBs, "
+                f"built in {time.perf_counter() - t0:.1f} s")
+            if rec_s["params"] != stream_cell.dl_params() or \
+                    rec_s["placed"] != s_placed:
+                raise AssertionError("DL stream record does not match the "
+                                     "scenario")
+            # host costs of the tracker (numpy, on the card's host)
+            det = None
+
+            def search():
+                nonlocal det
+                det = sync.find_cell(stream[:12 * cell.sf_len], cell.n_fft)
+            t_find = host_ms(search)
+            tr = sync.SubframeTracker(cell, det.subframe_offset,
+                                      5 if det.is_subframe5 else 0,
+                                      cfo=det.cfo)
+            n_framed = []
+            t_frames = host_ms(lambda: n_framed.append(
+                sum(1 for _ in tr.frames(stream))))
+            tr2 = sync.SubframeTracker(cell, 0, 0)
+            t_reacq = host_ms(lambda: tr2._reacquire(stream, 0))
+            log(f"  host on {card}'s machine: find_cell over 12 subframes "
+                f"{t_find:.1f} ms; one SubframeTracker.frames pass over the "
+                f"whole stream {t_frames:.1f} ms ({n_framed[0]} subframes, "
+                f"{tr.drift_corrections} drift corrections, {tr.resyncs} "
+                f"re-acquires); one _reacquire (12-subframe np.correlate) "
+                f"{t_reacq:.1f} ms")
+            prof.reset()
+            bcjr.reset_launches()
+            turbo_decode.reset_launches()
+            cs, acc_s, segs, dt_s = run_dl_stream(device, stream, tmp)
+            n_fused_s = turbo_decode.LAUNCHES["turbo_decode"]
+            n_pass_s = bcjr.LAUNCHES["bcjr"]
+            got = stream_counts(cs)
+            log(f"  summary: {got}, dcis {cs.summary()['dcis']}, pdsch_ok "
+                f"{cs.summary()['pdsch_ok']}; record {rec_s['summary']}")
+            log(f"  segments (subframes, first sf_idx): {segs}; record "
+                f"{rec_s['segments']}")
+            log(f"  launches in this run: turbo_decode (fused) {n_fused_s}, "
+                f"bcjr (pass kernel) {n_pass_s}")
+            for line in prof.pretty().splitlines():
+                log(f"  host span {line}")
+            compare_loaded(rec_s, cs, acc_s)
+            want = {k: rec_s["summary"][k] for k in got}
+            if got != want or segs != rec_s["segments"]:
+                raise AssertionError(f"stream counts {got} / segments differ "
+                                     f"from the record {want}")
+            if got["resyncs"] < 1:
+                raise AssertionError("the stream did not re-acquire")
+            if n_fused_s <= 0:
+                raise AssertionError("the stream path launched no fused "
+                                     "turbo kernel")
+            if n_pass_s != 0:
+                raise AssertionError(f"the stream path launched the pass "
+                                     f"kernel {n_pass_s} times")
+            _, _, _, dt_s2 = run_dl_stream(device, stream, tmp)
+            dt_f = framing_only_s(device, stream)
+            _, _, dt_p = run_loaded(device, words, scales, tmp,
+                                    batch_size=stream_cell.BATCH)
+            n_sf = got["subframes"]
+            log(f"  run_source on {card}: {n_sf / dt_s:.1f} sf/s first pass "
+                f"({dt_s:.2f} s), {n_sf / dt_s2:.1f} sf/s warm "
+                f"({dt_s2:.2f} s); run_packed on the aligned loaded cell at "
+                f"batch {stream_cell.BATCH}, warm: "
+                f"{loaded_cell.N_SF / dt_p:.1f} sf/s ({dt_p:.2f} s); "
+                f"run_source's framing alone (segments dropped, not "
+                f"decoded) {dt_f:.2f} s")
+        with Phase("7b live mode (live_buffer_sf 20) on the 7a stream"):
+            cl, _, _, dt_l = run_dl_stream(device, stream, tmp, live=True)
+            sl = cl.summary()
+            kept = sl["subframes"] / max(1, sl["subframes"] + sl["sf_skipped"])
+            log(f"  live: {sl['subframes']} kept, {sl['sf_skipped']} "
+                f"skipped in {dt_l:.2f} s; share of a 1000 sf/s air kept "
+                f"{kept:.4f} on {card}")
+            if sl["subframes"] + sl["sf_skipped"] != got["subframes"]:
+                raise AssertionError("live mode lost subframes: kept + "
+                                     "skipped != framed")
+        with Phase("7c dual stream (UL cell, 20 MHz, 512 subframes, UL 37 "
+                   "samples late) through run_dual_source"):
+            rec_us = json.load(open(EXPECTED_UL_STREAM))
+            t0 = time.perf_counter()
+            us_dl, us_ul, us_placed, us_truth = stream_cell.build_ul_streams()
+            log(f"  streams built in {time.perf_counter() - t0:.1f} s, "
+                f"{us_placed} placed DCI0s")
+            if rec_us["params"] != stream_cell.ul_params() or \
+                    rec_us["placed"] != us_placed:
+                raise AssertionError("UL stream record does not match the "
+                                     "scenario")
+            bcjr.reset_launches()
+            turbo_decode.reset_launches()
+            cus, dci0_s, dt_us = run_ul_stream(device, us_dl, us_ul, tmp)
+            n_fused_us = turbo_decode.LAUNCHES["turbo_decode"]
+            log(f"  {len(dci0_s)} DCI0s, {len(cus.ul_results)} results, "
+                f"{sum(r.crc_ok for r in cus.ul_results)} CRC-ok (record "
+                f"{len(rec_us['dci0'])}, {rec_us['n_results']}, "
+                f"{rec_us['crc_ok']}); {stream_cell.N_SF / dt_us:.1f} sf/s "
+                f"({dt_us:.2f} s); fused launches {n_fused_us}")
+            compare_ul(rec_us, cus, dci0_s, us_truth)
+            if n_fused_us <= 0:
+                raise AssertionError("the dual stream launched no fused "
+                                     "turbo kernel")
+        with Phase("7d ingest options on the golden scenario"):
+            rec_i = json.load(open(EXPECTED_INGEST))["pcap_sha256"]
+            for key, sha in run_ingest(device, tmp).items():
+                log(f"  {key}: sha256 {sha} "
+                    f"({'equal' if sha == rec_i[key] else 'DIFFERS'})")
+                if sha != rec_i[key]:
+                    raise AssertionError(f"ingest {key}: pcap differs from "
+                                         "the JAX package's")
+        with Phase("7e the CLI (--sync) in a subprocess"):
+            rec_c = json.load(open(EXPECTED_CLI))
+            sha, stats, dt_c = run_cli(tmp)
+            log(f"  CLI pcap sha256 {sha} ({'equal' if sha == rec_c['pcap_sha256'] else 'DIFFERS'}); "
+                f"{dt_c:.1f} s wall with its start-up; stats {stats}")
+            if sha != rec_c["pcap_sha256"] or stats != rec_c["stats"]:
+                raise AssertionError("the CLI's pcap or stats differ from the "
+                                     "JAX CLI's")
         t2, t12, t8 = td[2], td[12], td[MIMO_N_ITER]
         line = {"kernels": [{
             "name": "turbo_decode", "route": "cuda",
@@ -890,6 +1183,8 @@ def main() -> int:
                    "shape": {"K": K_ul, "B": B_ul, "n_iter": 2},
                    **{k: t_ul[k] for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "lanes_ms")}},
+            "stream": {"launches": n_fused_s},
+            "ul_stream": {"launches": n_fused_us},
         }, {
             "name": "bcjr", "route": "cuda",
             "source": "ltesniffer_tpu_torch/kernels/csrc/bcjr.cu",
@@ -897,7 +1192,8 @@ def main() -> int:
             "max_abs_err": err["bcjr"], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": None,
-            "launches_mimo": n_pass_m, "launches_ul": n_pass_u}]}
+            "launches_mimo": n_pass_m, "launches_ul": n_pass_u,
+            "launches_stream": n_pass_s}]}
         log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -41,10 +41,11 @@ from ltesniffer_tpu_torch.phy.params import (CellConfig, SIRNTI, PRNTI,
 # pay for it.
 RARNTI_FDD_END = RARNTI_START + 9
 from ltesniffer_tpu_torch.io import iq as iq_mod, pcap as pcap_mod
+from ltesniffer_tpu_torch.io import sdr as sdr_mod
 from ltesniffer_tpu_torch.mac_rrc import mac as mac_mod
 from ltesniffer_tpu_torch.kernels import cplx
 from . import (dci_search, frontend, pbch_rx, pdcch_rx, pdsch_rx, prof,
-               rnti_manager, security_api, trackers)
+               rnti_manager, security_api, sync, trackers)
 
 
 @dataclasses.dataclass
@@ -62,6 +63,15 @@ class SnifferConfig:
     # (`ltesniffer_tpu_torch/native.py`, built with g++ at first use; the
     # core raises if it cannot be built), False = the Python copy
     use_native: bool = True
+    # IQ ingest quantization: "i8" (packed int8, per-subframe AGC, 4x fewer
+    # H2D elements), "i16" (global scale), or "f32" (none).  ingest_int16
+    # is the legacy alias: False forces "f32".  Tradeoff: i8's per-subframe
+    # AGC puts the quantization floor ~42 dB below each subframe's PEAK —
+    # in an extreme near-far/blocker subframe a weak co-scheduled grant
+    # loses margin vs the globally-scaled i16 path; switch to "i16" for
+    # such captures (real 8-bit SDR front-ends have the same floor).
+    ingest: str = "i8"
+    ingest_int16: bool = True
     # primary-pass turbo iterations: 2 matches srsRAN's effective average
     # (its per-CB early stop exits after 1-2 iterations at working SNR);
     # CRC failures re-decode from the stored LLRs at turbo_iters_max
@@ -72,6 +82,16 @@ class SnifferConfig:
     heartbeat: bool = False                # per-1000-subframe progress line
     table_every_s: float = 0.0             # >0: periodic DL/UL tables
     draw_maps: bool = False                # ASCII RB/power maps per subframe
+    # batches in flight in run_samples: 1 = fully synchronous, 2 = read
+    # batch k's results while batch k+1 computes, 3 = the 5-phase deep
+    # pipeline (the host resolve overlaps device compute)
+    pipeline_depth: int = 3
+    # live-mode overload shedding (`LTESniffer_Core.cc:443-451`): when
+    # run_source falls more than live_buffer_sf subframes behind the
+    # radio's 1 ms cadence, incoming subframes are DROPPED and counted
+    # (the reference drops when its 20-worker ring is exhausted)
+    live_mode: bool = False
+    live_buffer_sf: int = 20
     # False = file-mode parity with the reference: cell/SFN preset from
     # the command line, DECODE_MIB state skipped entirely
     # (`LTESniffer_Core.cc:239`); True = acquire the SFN from PBCH
@@ -117,6 +137,7 @@ class LTESnifferCore:
         self.ulsche = trackers.ULSchedule()
         self.soft_buffers = trackers.SoftBufferPool(cfg.max_harq_retx_buffers)
         self.harq_skipped = 0
+        self.sf_skipped = 0       # live-mode overload drops
         self.frontend = frontend.make_frontend(self.cell)
         self.sfn = cfg.sfn0
         self.sf_count = 0
@@ -136,6 +157,7 @@ class LTESnifferCore:
         self._low_snr_run = 0     # consecutive low-SNR subframes
         self.sync_losses = 0
         self.est_cfo = 0.0        # residual CFO (subcarriers), integrator-tracked
+        self.tracker = None       # SubframeTracker when run_source is used
         self.sib1_info = None     # decoded SIB1 (PLMN, SI scheduling)
         self.stop_requested = False   # SIGINT gate (`SignalManager.h:41-56`)
         from . import observability as obs_mod
@@ -170,19 +192,139 @@ class LTESnifferCore:
         samples = iq_mod.read_iq(path)
         return self.run_samples(samples[sf_offset:], sf_idx0, max_subframes)
 
+    def run_stream(self, samples: np.ndarray,
+                   max_subframes: Optional[int] = None,
+                   chunk_subframes: int = 256):
+        """Continuous-stream entry with real timing acquisition (see
+        `run_source`; this wraps an in-memory array as the source)."""
+        return self.run_source(
+            sdr_mod.ArraySource(np.asarray(samples), self.cell.srate),
+            max_subframes=max_subframes, chunk_subframes=chunk_subframes)
+
+    def run_source(self, source, max_subframes: Optional[int] = None,
+                   chunk_subframes: int = 256):
+        """Live-capable ingest from a `SampleSource` (SDR, file, array):
+        PSS/SSS cell search on the first blocks, PSS-tracked framing with
+        drift correction across block boundaries, sync-loss recovery
+        (full re-acquire + SFN re-sync from the MIB), and live-mode
+        overload shedding — the reference's sync loop + DECODE_MIB
+        fallback + radio receive path (`LTESniffer_Core.cc:361-528,
+        591-601`).  The tracker runs on the host; each segment of framed
+        subframes goes through `run_samples`."""
+        n = self.cell.sf_len
+        # --- acquire: buffer enough for the cell search ----------------
+        need = 12 * n
+        acc: List[np.ndarray] = []
+        got = 0
+        while got < need:
+            blk = source.read(need - got)
+            if blk is None:
+                break
+            acc.append(np.asarray(blk, dtype=np.complex64))
+            got += len(blk)
+        carry = (np.concatenate(acc) if acc
+                 else np.zeros(0, np.complex64))
+        det = sync.find_cell(carry[:12 * n], self.cell.n_fft)
+        if det is None:
+            raise RuntimeError("cell search failed: no PSS/SSS found")
+        if det.n_id_cell != self.cell.n_id_cell:
+            raise RuntimeError(
+                f"cell ID mismatch: found {det.n_id_cell}, "
+                f"configured {self.cell.n_id_cell}")
+        self.tracker = sync.SubframeTracker(
+            self.cell, det.subframe_offset, 5 if det.is_subframe5 else 0,
+            cfo=det.cfo)
+        seg: List[np.ndarray] = []
+        seg_sf0 = self.tracker.sf_idx
+        done = 0
+        t0 = time.monotonic()
+
+        def flush():
+            nonlocal seg
+            if seg:
+                self.run_samples(np.concatenate(seg), sf_idx0=seg_sf0)
+                seg = []
+
+        eos = done_limit = False
+        while not eos and not done_limit and not self.stop_requested:
+            yielded = 0
+            for sf_idx, frame in self.tracker.frames(carry):
+                yielded += 1
+                if self.stop_requested:
+                    break
+                if self.tracker.sync_lost:
+                    # timing re-acquired after losses: subframe continuity
+                    # broke, so flush and re-acquire the SFN from the MIB
+                    flush()
+                    seg_sf0 = sf_idx
+                    self._mib_synced = False
+                    self._mib_sf0_seen = 0
+                    self.sync_losses += 1
+                    self.tracker.sync_lost = False
+                done += 1
+                if self.cfg.live_mode:
+                    # overload shedding: this subframe "arrived" at done ms
+                    # on the radio clock; if processing lags more than the
+                    # buffer ring absorbs, drop + count (`LTESniffer_Core.
+                    # cc:443-451,557-562` getAvailImmediate + skip counter)
+                    lag_sf = (time.monotonic() - t0) * 1e3 - done
+                    if lag_sf > self.cfg.live_buffer_sf:
+                        self.sf_skipped += 1
+                        if self.heartbeat is not None:
+                            self.heartbeat.tick(0, skipped=1)
+                        if seg:             # keep subframe continuity
+                            flush()
+                        seg_sf0 = (sf_idx + 1) % 10
+                        continue
+                seg.append(frame)
+                if len(seg) >= chunk_subframes:
+                    flush()
+                    seg_sf0 = self.tracker.sf_idx
+                if max_subframes is not None and done >= max_subframes:
+                    done_limit = True
+                    break
+            # carry the unconsumed tail into the next block (the tracker's
+            # end-of-array offset is relative to the array end)
+            tail_start = len(carry) + self.tracker.offset
+            tail = (carry[tail_start:] if 0 <= tail_start <= len(carry)
+                    else np.zeros(0, np.complex64))
+            if yielded == 0 and len(tail) > 4 * n:
+                # nothing decodable in a whole block: keep only a resync
+                # window so garbage input cannot grow the buffer unboundedly
+                tail = tail[-2 * n:]
+            nxt = source.read(chunk_subframes * n)
+            if nxt is None:
+                eos = True
+                carry = np.zeros(0, np.complex64)
+            else:
+                carry = np.concatenate([tail,
+                                        np.asarray(nxt, np.complex64)])
+                self.tracker.offset = 0   # next unconsumed = tail head
+        flush()
+        return self.results
+
     def run_samples(self, samples: np.ndarray, sf_idx0: int = 0,
                     max_subframes: Optional[int] = None):
-        """Complex64 single-antenna IQ: quantized to packed int8 with a
+        """Complex64 single-antenna IQ, quantized as `cfg.ingest` says
+        (`ingest_int16=False` forces "f32"): "i8" packs int8 with a
         per-subframe AGC (`cplx.to_i8_packed`; ~42 dB below each
-        subframe's peak, the fidelity of an 8-bit SDR front-end), then
-        the pipelined driver of `run_packed`."""
+        subframe's peak, the fidelity of an 8-bit SDR front-end), "i16"
+        scales to int16 globally (`cplx.to_i16`), "f32" sends the floats.
+        Then the pipelined driver."""
         n = self.cell.sf_len
         total = len(samples) // n
         if max_subframes is not None:
             total = min(total, max_subframes)
-        words, scales = cplx.to_i8_packed(
-            samples[:total * n].reshape(total, 1, n))
-        return self._run_packed(words, scales, total, sf_idx0)
+        frames = samples[:total * n].reshape(total, 1, n)
+        scale = None
+        quant = self.cfg.ingest if self.cfg.ingest_int16 else "f32"
+        if quant == "i8":
+            frames, scale = cplx.to_i8_packed(frames)
+        elif quant == "i16":
+            frames, scale = cplx.to_i16(frames)
+        else:
+            quant = "f32"
+        return self._run_quantized(frames, scale, quant, total, sf_idx0)
 
     def run_packed(self, packed: np.ndarray, scales: np.ndarray,
                    sf_idx0: int = 0, max_subframes: Optional[int] = None):
@@ -192,8 +334,8 @@ class LTESnifferCore:
         total = packed.shape[0]
         if max_subframes is not None:
             total = min(total, max_subframes)
-        return self._run_packed(packed[:total], scales[:total], total,
-                                sf_idx0)
+        return self._run_quantized(packed[:total], scales[:total], "i8",
+                                   total, sf_idx0)
 
     # batches copied to the device ahead of the compute frontier
     PREFETCH_BATCHES = 3
@@ -209,43 +351,79 @@ class LTESnifferCore:
                      torch.from_numpy(np.ascontiguousarray(scale[a:b])).to(dev),
                      sf_idx[a:b].astype(np.int64))
 
-    def _run_packed(self, frames, scale, total: int, sf_idx0: int):
+    def _run_quantized(self, frames, scale, quant: str, total: int,
+                       sf_idx0: int):
         """Pipelined batch driver: batch N+1's device work is queued before
         batch N's host-side resolve runs, so host work overlaps device
         compute (the analog of the reference's sync-thread / worker-pool
-        overlap, `Phy.cc:29-55`)."""
+        overlap, `Phy.cc:29-55`).  "i8" frames are packed words copied a
+        few batches ahead (`_put_chunk`); "i16" and "f32" frames go a
+        batch at a time through `_phase1`."""
         self._seg_base = self._sf_dispatched
         self._seg_sf0 = sf_idx0
+        n = self.cell.sf_len
         sf_idx = (sf_idx0 + np.arange(total)) % 10
         # int64 carrier: 8 int8 IQ bytes per element
-        w64 = cplx.view_i64(frames)
+        w64 = cplx.view_i64(frames) if quant == "i8" else None
         chunks: dict = {}
+        depth = max(1, self.cfg.pipeline_depth)
         from collections import deque
         q: deque = deque()
         for kk, a in enumerate(range(0, total, self.cfg.batch_size)):
             if self.stop_requested:
                 break
-            for kp in range(kk, kk + 1 + self.PREFETCH_BATCHES):
-                self._put_chunk(chunks, w64, scale, sf_idx, kp, total)
-            q.append(self._phase1_chunk(*chunks.pop(kk)))
-            # deep 5-phase pipeline (2+ batches of device work queued).
-            # Phase ORDER within the iteration matters on the in-order
-            # device queue: phase4's escalation/retry dispatches land
-            # BEFORE this iteration's search dispatch (phase2), so next
-            # iteration's phase5 read waits only on a sliver of compute
-            # instead of draining a whole batch.  finalize(k) must still
-            # run before build(k+1): trackers (HARQ/MCS) that batch k's
-            # results update gate batch k+1's decisions — phase5(k-4)
-            # precedes phase3(k-2).  (The JAX package's order, kept
-            # exactly: the golden pcap depends on it.)
-            if len(q) >= 5:
-                self._phase5(q.popleft())
-            if len(q) >= 4:
-                self._phase4(q[-4])
-            if len(q) >= 2:
-                self._phase2(q[-2])
-            if len(q) >= 3:
-                self._phase3(q[-3])
+            b = min(a + self.cfg.batch_size, total)
+            if w64 is not None:
+                for kp in range(kk, kk + 1 + self.PREFETCH_BATCHES):
+                    self._put_chunk(chunks, w64, scale, sf_idx, kp, total)
+                q.append(self._phase1_chunk(*chunks.pop(kk)))
+            else:
+                blk = frames[a:b]
+                if scale is None and abs(self.est_cfo) > 2e-3:
+                    # worker-estimated CFO fed back into the stream,
+                    # mirroring the reference's est_cfo channel
+                    # (`SubframeWorker.cc:203`); pipelining adds ~2 batches
+                    # of feedback latency (quantized ingest applies the
+                    # same rotation on the device instead)
+                    rot = np.exp(-2j * np.pi * self.est_cfo
+                                 * np.arange(n) / self.cell.n_fft)
+                    blk = (blk * rot[None, None, :]).astype(np.complex64)
+                q.append(self._phase1(blk, sf_idx[a:b], scale=scale))
+            if depth >= 3:
+                # deep 5-phase pipeline (2+ batches of device work
+                # queued).  Phase ORDER within the iteration matters on
+                # the in-order device queue: phase4's escalation/retry
+                # dispatches land BEFORE this iteration's search dispatch
+                # (phase2), so next iteration's phase5 read waits only on
+                # a sliver of compute instead of draining a whole batch.
+                # finalize(k) must still run before build(k+1): trackers
+                # (HARQ/MCS) that batch k's results update gate batch
+                # k+1's decisions — phase5(k-4) precedes phase3(k-2).
+                # (The JAX package's order, kept exactly: the golden pcap
+                # depends on it.)
+                if len(q) >= 5:
+                    self._phase5(q.popleft())
+                if len(q) >= 4:
+                    self._phase4(q[-4])
+                if len(q) >= 2:
+                    self._phase2(q[-2])
+                if len(q) >= 3:
+                    self._phase3(q[-3])
+            elif depth == 2:
+                # queue this batch's full device chain, then read the
+                # PREVIOUS batch's results while this one computes
+                self._phase2(q[-1])
+                if len(q) >= 2:
+                    ctx = q.popleft()
+                    self._phase3(ctx)
+                    self._phase4(ctx)
+                    self._phase5(ctx)
+            else:
+                ctx = q.popleft()
+                self._phase2(ctx)
+                self._phase3(ctx)
+                self._phase4(ctx)
+                self._phase5(ctx)
         while q:
             ctx = q.popleft()
             if ctx["stage"] < 2:
@@ -262,17 +440,7 @@ class LTESnifferCore:
         n) or (B, n), straight to the float frontend with no quantization;
         the same phases as the pipelined driver, zero lookahead."""
         x = np.asarray(frames, np.complex64)
-        if x.ndim == 2:
-            x = x[:, None]
-        ri = torch.from_numpy(cplx.to_ri(x)).to(self.device)
-        sf_idx = np.asarray(sf_idx).astype(np.int64)
-        with prof.span("p1_frontend"):
-            fe = self.frontend.run_ri(ri, torch.from_numpy(sf_idx).to(
-                self.device))
-        base = self._sf_dispatched
-        self._sf_dispatched += len(sf_idx)
-        ctx = dict(fe=fe, sf_idx=sf_idx, B=len(sf_idx), base=base,
-                   fbase=self._seg_sf0 + (base - self._seg_base), stage=1)
+        ctx = self._phase1(x[:, None] if x.ndim == 2 else x, sf_idx)
         self._phase2(ctx)
         self._phase3(ctx)
         self._phase4(ctx)
@@ -281,13 +449,39 @@ class LTESnifferCore:
     # ------------------------------------------------------------------
     def _phase1_chunk(self, d64, d_scale, sf_idx: np.ndarray) -> dict:
         """Queue the frontend on one int64-carried chunk on the device."""
-        B = len(sf_idx)
         with prof.span("p1_frontend"):
             fe = self.frontend.run_i8c64(
                 d64, torch.from_numpy(sf_idx).to(self.device), d_scale,
                 float(np.float32(self.est_cfo)))
+        return self._dispatched(fe, sf_idx)
+
+    def _phase1(self, frames: np.ndarray, sf_idx: np.ndarray,
+                scale=None) -> dict:
+        """Queue the frontend on one batch: int16 pairs + global scale
+        (on-device CFO de-rotation) when `scale` is given, else complex64
+        frames (B, RX, n) as float pairs."""
+        sf_idx = np.asarray(sf_idx).astype(np.int64)
+        sf_dev = torch.from_numpy(sf_idx).to(self.device)
+        with prof.span("p1_frontend"):
+            if scale is not None:
+                fe = self.frontend.run_i16(
+                    torch.from_numpy(np.ascontiguousarray(frames)).to(
+                        self.device), sf_dev,
+                    torch.tensor(np.float32(scale), device=self.device),
+                    float(np.float32(self.est_cfo)))
+            else:
+                fe = self.frontend.run(
+                    np.ascontiguousarray(frames, dtype=np.complex64),
+                    sf_dev, self.device)
+        return self._dispatched(fe, sf_idx)
+
+    def _dispatched(self, fe: dict, sf_idx: np.ndarray) -> dict:
+        """A batch's context once its frontend is queued."""
+        B = len(sf_idx)
         base = self._sf_dispatched
         self._sf_dispatched += B
+        # frame-aligned index: (fbase + i) // 10 counts frame boundaries
+        # exactly at the sf_idx 9 -> 0 wraps of this segment
         fbase = self._seg_sf0 + (base - self._seg_base)
         return dict(fe=fe, sf_idx=np.asarray(sf_idx), B=B,
                     base=base, fbase=fbase, stage=1)
@@ -1179,12 +1373,10 @@ class LTESnifferCore:
             "dcis": len(self.results),
             "pdsch_ok": ok,
             "harq_skipped": self.harq_skipped,
-            # live-mode drops and stream re-syncs: the live and stream
-            # drivers are not ported, so neither happens yet
-            "sf_skipped": 0,
+            "sf_skipped": self.sf_skipped,
             "active_rntis": len(self.rm.active_set()),
             "sync_losses": self.sync_losses,
-            "resyncs": 0,
+            "resyncs": self.tracker.resyncs if self.tracker else 0,
             "search_stats": dataclasses.asdict(self.search.stats),
         }
 
@@ -1237,6 +1429,126 @@ class LTESnifferCoreUL(LTESnifferCore):
         self.prach_detections: List[dict] = []
         self.ul_hist = trackers.UlGrantHistory()
         self._ul_pending = None
+
+    def run_dual_source(self, dl_source, ul_source,
+                        max_subframes: Optional[int] = None,
+                        chunk_subframes: int = 256, ul_skew: int = 0):
+        """Live-capable dual-carrier ingest: two `SampleSource`s on one
+        sample clock (the reference's dual-frequency rf open,
+        `LTESniffer_Core.cc:176-191,225`).  PSS cell search + tracking run
+        on the DL stream; the UL stream is SLAVED to the DL timing (both
+        streams are sliced at identical positions, so drift corrections
+        and sync-loss re-acquires apply to both — per-stream handling as
+        one shared clock, which is what the dual-channel radio gives).
+        Each segment goes through `run_dual_packed`.
+
+        ul_skew: known inter-stream sample offset (UL content sitting
+        `ul_skew` samples LATER in its stream than the corresponding DL
+        time — analog-path delay / TA pre-buffer margin, the reference's
+        ta_buffer `LTESniffer_Core.cc:100-104`); compensated at ingest."""
+        n = self.cell.sf_len
+        need = 12 * n
+        dl_acc: List[np.ndarray] = []
+        ul_acc: List[np.ndarray] = []
+        got = 0
+        while got < need:
+            blk = dl_source.read(need - got)
+            ublk = ul_source.read(need - got)
+            if blk is None or ublk is None:
+                break
+            m = min(len(blk), len(ublk))   # lockstep: keep pairs aligned
+            dl_acc.append(np.asarray(blk[:m], np.complex64))
+            ul_acc.append(np.asarray(ublk[:m], np.complex64))
+            got += m
+        dl_carry = (np.concatenate(dl_acc) if dl_acc
+                    else np.zeros(0, np.complex64))
+        ul_carry = (np.concatenate(ul_acc) if ul_acc
+                    else np.zeros(0, np.complex64))
+        if ul_skew > 0:        # UL content arrives later in its stream
+            ul_carry = ul_carry[ul_skew:]
+        elif ul_skew < 0:
+            ul_carry = np.concatenate(
+                [np.zeros(-ul_skew, np.complex64), ul_carry])
+        det = sync.find_cell(dl_carry[:12 * n], self.cell.n_fft)
+        if det is None:
+            raise RuntimeError("cell search failed: no PSS/SSS found")
+        if det.n_id_cell != self.cell.n_id_cell:
+            raise RuntimeError(
+                f"cell ID mismatch: found {det.n_id_cell}, "
+                f"configured {self.cell.n_id_cell}")
+        self.tracker = sync.SubframeTracker(
+            self.cell, det.subframe_offset, 5 if det.is_subframe5 else 0,
+            cfo=det.cfo)
+        dl_seg: List[np.ndarray] = []
+        ul_seg: List[np.ndarray] = []
+        seg_sf0 = self.tracker.sf_idx
+        done = 0
+
+        def flush():
+            nonlocal dl_seg, ul_seg
+            if dl_seg:
+                T = len(dl_seg)
+                dl_p = cplx.to_i8_packed(
+                    np.stack(dl_seg).reshape(T, 1, n))
+                ul_p = cplx.to_i8_packed(
+                    np.stack(ul_seg).reshape(T, 1, n))
+                self.run_dual_packed(dl_p, ul_p, sf_idx0=seg_sf0)
+                dl_seg = []
+                ul_seg = []
+
+        eos = done_limit = False
+        while not eos and not done_limit and not self.stop_requested:
+            pad = len(dl_carry) - len(ul_carry)
+            if pad > 0:        # a short UL read: keep positions aligned
+                ul_carry = np.concatenate(
+                    [ul_carry, np.zeros(pad, np.complex64)])
+            yielded = 0
+            for sf_idx, frame, ul_frame in self.tracker.frames(
+                    dl_carry, aux=ul_carry):
+                yielded += 1
+                if self.stop_requested:
+                    break
+                if self.tracker.sync_lost:
+                    flush()
+                    seg_sf0 = sf_idx
+                    self._mib_synced = False
+                    self._mib_sf0_seen = 0
+                    self.sync_losses += 1
+                    self.tracker.sync_lost = False
+                done += 1
+                dl_seg.append(frame)
+                ul_seg.append(ul_frame)
+                if len(dl_seg) >= chunk_subframes:
+                    flush()
+                    seg_sf0 = self.tracker.sf_idx
+                if max_subframes is not None and done >= max_subframes:
+                    done_limit = True
+                    break
+            tail_start = len(dl_carry) + self.tracker.offset
+            dl_tail = (dl_carry[tail_start:]
+                       if 0 <= tail_start <= len(dl_carry)
+                       else np.zeros(0, np.complex64))
+            ul_tail = (ul_carry[tail_start:]
+                       if 0 <= tail_start <= len(ul_carry)
+                       else np.zeros(0, np.complex64))
+            if yielded == 0 and len(dl_tail) > 4 * n:
+                dl_tail = dl_tail[-2 * n:]
+                ul_tail = ul_tail[-2 * n:]
+            nxt = dl_source.read(chunk_subframes * n)
+            unxt = ul_source.read(chunk_subframes * n)
+            if nxt is None or unxt is None:
+                eos = True
+                dl_carry = np.zeros(0, np.complex64)
+                ul_carry = np.zeros(0, np.complex64)
+            else:
+                m = min(len(nxt), len(unxt))
+                dl_carry = np.concatenate(
+                    [dl_tail, np.asarray(nxt[:m], np.complex64)])
+                ul_carry = np.concatenate(
+                    [ul_tail, np.asarray(unxt[:m], np.complex64)])
+                self.tracker.offset = 0
+        flush()
+        return self.ul_results
 
     def run_dual_samples(self, dl_samples: np.ndarray, ul_samples: np.ndarray,
                          sf_idx0: int = 0,

@@ -16,7 +16,7 @@ import torch
 from ltesniffer_tpu_torch.phy import grid as grid_mod
 from ltesniffer_tpu_torch.phy.params import CellConfig
 from ltesniffer_tpu_torch.kernels import chest, demapper, ofdm
-from ltesniffer_tpu_torch.kernels.cplx import const
+from ltesniffer_tpu_torch.kernels.cplx import const, to_ri
 
 
 class Frontend:
@@ -73,6 +73,20 @@ class Frontend:
         c, s = torch.cos(theta), torch.sin(theta)
         xr, xi = x[..., 0], x[..., 1]
         return torch.stack([xr * c - xi * s, xr * s + xi * c], dim=-1)
+
+    def run(self, samples: np.ndarray, sf_idx, device):
+        """Unquantized ingest: (B, RX, n) numpy complex64 samples, copied to
+        `device` as float pairs; no de-rotation (the float32 path of the
+        core mixes its CFO correction on the host)."""
+        x = torch.from_numpy(to_ri(samples)).to(device)
+        return self.run_ri(x, sf_idx)
+
+    def run_i16(self, samples_i16, sf_idx, scale, cfo: float):
+        """Quantized-IQ ingest: (B, RX, n, 2) int16 + a global float32
+        scale (0-dim tensor), with the residual-CFO de-rotation applied on
+        the device (the reference's host-side `srsran_cfo_correct`)."""
+        x = samples_i16.to(torch.float32) * scale
+        return self.run_ri(self._derotate(x, cfo), sf_idx)
 
     def _unpack_i8(self, p8, scales, cfo: float):
         """(B, RX, n) int8 IQ bytes (re, im interleaved) + per-subframe

@@ -40,9 +40,13 @@ def params(n_sf: int = N_SF) -> dict:
 
 def build_stream(cell: CellConfig = CELL, n_sf: int = N_SF,
                  n_rnti: int = N_RNTI, grants: int = GRANTS,
-                 mimo_dcis: int = MIMO_DCIS, seed: int = SEED):
+                 mimo_dcis: int = MIMO_DCIS, seed: int = SEED,
+                 pdsch_free_sf: tuple = ()):
     """-> (complex64 IQ stream (n_sf * sf_len,), placed transport blocks,
-    per-TB truth dicts (sf, sf_idx, rnti, tbs, mcs, pdu))."""
+    per-TB truth dicts (sf, sf_idx, rnti, tbs, mcs, pdu)).
+
+    `pdsch_free_sf`: subframe indices (0-9) that carry no grant at all;
+    the stream scenario leaves 0 and 5 free (`testing/stream_cell.py`)."""
     sb = scenario.ScenarioBuilder(cell, cfi=CFI, seed=seed)
     # the last few RNTIs are TM3 (format 2A) UEs: the RNTI manager's
     # per-RNTI DL-format lock means a UE is either 1A- or 2A-scheduled
@@ -58,7 +62,7 @@ def build_stream(cell: CellConfig = CELL, n_sf: int = N_SF,
     for j in range(n_sf):
         sf = j % 10
         txs = []
-        for g in range(grants):
+        for g in range(0 if sf in pdsch_free_sf else grants):
             r = rntis[(j * grants + g) % len(rntis)]
             pid = (j // 8) % 8
             ndi[(r, pid)] = ndi.get((r, pid), 1) ^ 1
@@ -70,7 +74,7 @@ def build_stream(cell: CellConfig = CELL, n_sf: int = N_SF,
                 rnti=r, mac_pdu=pdu, n_prb=8, prb_start=g * 8,
                 harq_pid=pid, ndi=ndi[(r, pid)],
                 mcs=mcs256 if on256 else None, table_256=on256))
-        for m in range(mimo_dcis):
+        for m in range(0 if sf in pdsch_free_sf else mimo_dcis):
             # spatial-mux 2-TB grant (format 2A): W_MIMO tracker load
             txs.append(scenario.DlTx(
                 rnti=mimo_rntis[(j + m) % len(mimo_rntis)], mac_pdu=b"",

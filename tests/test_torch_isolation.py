@@ -2,13 +2,15 @@
 
 * In a fresh interpreter that refuses `jax`, `jaxlib` and
   `ltesniffer_tpu` (but not `ltesniffer_tpu_torch`), every module of the
-  port and chip_smoke.py import.
+  port (the CLI, cell search and SDR sources among them) and
+  chip_smoke.py import.
 * The port's scenario generator reproduces the JAX package's IQ (the
   golden scenario, the first 4 loaded-cell subframes, the UL golden's
   dual-carrier streams and the first 6 subframes of the UL cell) within
   1e-5.
 * `convert.config_from_reference` rebuilds the reference's configuration
-  (the DL golden's and the UL golden's), and the port's constant tables
+  (the DL golden's and the UL golden's, and configs with the ingest,
+  pipeline-depth and live options), and the port's constant tables
   equal the reference's numpy arrays.
 """
 import dataclasses
@@ -36,7 +38,7 @@ from ltesniffer_tpu_torch.phy import conv, crc, sequences, tables
 from ltesniffer_tpu_torch.phy import turbo as turbo_host
 from ltesniffer_tpu_torch.phy.params import CellConfig
 from ltesniffer_tpu_torch.sniffer import core, pdcch_rx
-from ltesniffer_tpu_torch.testing import loaded_cell, ul_cell
+from ltesniffer_tpu_torch.testing import loaded_cell, stream_cell, ul_cell
 
 from tests import test_golden_replay as golden
 from tests.test_torch_core import ref_loaded_stream
@@ -83,6 +85,11 @@ UL_MODULES = {"ltesniffer_tpu_torch.phy." + m for m in (
     "ltesniffer_tpu_torch.sniffer.pusch_rx",
     "ltesniffer_tpu_torch.sniffer.prach_rx",
     "ltesniffer_tpu_torch.testing.ul_cell"}
+# the live entry point's modules
+LIVE_MODULES = {"ltesniffer_tpu_torch.cli",
+                "ltesniffer_tpu_torch.sniffer.sync",
+                "ltesniffer_tpu_torch.io.sdr",
+                "ltesniffer_tpu_torch.testing.stream_cell"}
 
 
 def test_port_imports_without_jax_or_reference():
@@ -91,8 +98,9 @@ def test_port_imports_without_jax_or_reference():
                        cwd=REPO)
     assert r.returncode == 0, r.stderr[-3000:]
     lines = r.stdout.strip().splitlines()
-    assert int(lines[-1]) >= 61
+    assert int(lines[-1]) >= 65
     assert UL_MODULES <= set(lines[-2].split())
+    assert LIVE_MODULES <= set(lines[-2].split())
 
 
 def test_refusal_is_effective():
@@ -106,9 +114,7 @@ def test_refusal_is_effective():
 
 
 def test_generator_reproduces_golden_iq():
-    sys.path.insert(0, REPO)
-    import chip_smoke
-    _, got, _ = chip_smoke.golden_scenario()
+    _, got, _ = stream_cell.golden_scenario()
     want = golden._build_stream()
     assert got.dtype == want.dtype == np.complex64
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
@@ -172,9 +178,31 @@ def test_config_from_reference():
             assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
     assert convert.config_from_reference(
         dataclasses.asdict(ref.cell)) == cfg.cell
-    bad = dataclasses.asdict(dataclasses.replace(ref, ingest="i16"))
-    with pytest.raises(ValueError):
+    bad = dict(dataclasses.asdict(ref), no_such_option=1)
+    with pytest.raises(ValueError, match="no_such_option"):
         convert.config_from_reference(bad)
+
+
+@pytest.mark.parametrize("opts", [
+    dict(ingest="i16"), dict(ingest="f32", pipeline_depth=1),
+    dict(ingest_int16=False, pipeline_depth=2),
+    dict(live_mode=True, live_buffer_sf=7, pipeline_depth=2),
+    dict(ingest="i16", live_mode=True, use_native=False)])
+def test_config_from_reference_carries_live_and_ingest_options(opts):
+    """Every ingest, pipeline and live option of a reference config
+    carries over unchanged, and the port's core takes the config."""
+    ref = ref_core.SnifferConfig(cell=RefCell(n_id_cell=55, n_prb=50,
+                                              nof_ports=2, nof_rx_ant=1),
+                                 batch_size=8, **opts)
+    cfg = convert.config_from_reference(dataclasses.asdict(ref),
+                                        device="cpu")
+    for f in dataclasses.fields(cfg):
+        if f.name not in ("cell", "device"):
+            assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
+    for k, v in opts.items():
+        assert getattr(cfg, k) == v
+    c = core.LTESnifferCore(cfg)
+    assert c.sf_skipped == 0 and c.tracker is None
 
 
 def test_constant_tables_equal():
