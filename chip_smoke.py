@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --scale-out     # phase 8 alone, any card count
 
 Drives `ltesniffer_tpu_torch` — the PyTorch port of the JAX package
 `ltesniffer_tpu` — through its main path on the card and fails (non-zero
@@ -86,7 +87,30 @@ exit) if any phase fails:
    7e. `python -m ltesniffer_tpu_torch.cli ... --sync` in a subprocess on
        a file of the golden stream behind a 777-sample lead: exit 0, pcap
        sha256 and stats counts equal the JAX CLI's (cli_expected.json).
-8. the `kernels` JSON line, then the result line.
+8. scaling out (the loaded cell's complex stream):
+   8a. the split over devices: one batch of 256 subframes at CFI 2
+       through `parallel.sharding` (frontend + fixed-CFI search) as 4
+       shards on cuda:0 and, with more cards, one shard per card, against
+       `pdcch_rx.make_pipeline` on cuda:0 on the same host arrays: shard
+       by shard, every output (RNTIs and bits of every payload size, CCE
+       powers, SNRs) equal; against the whole batch in one call, CCE
+       powers within rtol 1e-4, atol 1e-5 and the native resolver's
+       accepted DCIs, payloads included, equal (the noise-only candidates
+       whose RNTIs or bits differ are counted); both wall times.
+   8b. time blocks: the 512 subframes in 2 blocks with 200 subframes of
+       tracker replay (`parallel.multihost.split_blocks` / `run_block`,
+       batch 8, port cores on the card), merged, held against
+       ltesniffer_tpu_torch/testing/multihost_expected.json (the JAX
+       package's merge on the CPU): equal merged accepted-DCI list, CRC-ok
+       flags within 0.5 %, as many pcap records differing from the
+       single-host run on the card as the JAX package's merge differs from
+       its own; fused launches and no pass launch; sf/s per block and for
+       the whole run.
+   8c. the runner: `python -m ltesniffer_tpu_torch.parallel.run_multihost
+       -n 2 --overlap 200` in a subprocess on a file of the stream (one
+       OS process per block, child k on cuda:{k % cards}): exit 0, merged
+       pcap records equal 8b's; the wall time with start-up.
+9. the `kernels` JSON line, then the result line.
 
 Imports torch, numpy, the standard library and the port only — no JAX.
 Writes only under a temporary directory and ltesniffer_tpu_torch/_build/.
@@ -99,6 +123,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_PCAP = os.path.join(REPO, "tests", "golden", "dl_mode.pcap")
@@ -117,6 +142,11 @@ EXPECTED_INGEST = os.path.join(REPO, "ltesniffer_tpu_torch", "testing",
                                "ingest_expected.json")
 EXPECTED_CLI = os.path.join(REPO, "ltesniffer_tpu_torch", "testing",
                             "cli_expected.json")
+EXPECTED_MULTIHOST = os.path.join(REPO, "ltesniffer_tpu_torch", "testing",
+                                  "multihost_expected.json")
+SHARD_BATCH = 256                # phase 8a: one batch of the loaded cell
+SHARD_CFI = 2                    # the loaded cell's CFI
+SHARD_RTOL, SHARD_ATOL = 1e-4, 1e-5   # tests/test_sharding.py:52-53
 MIMO_BATCH = 32                  # as the expected record was made
 MIMO_N_ITER = 8                  # decode_grant_mimo's turbo iterations
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
@@ -734,6 +764,263 @@ def run_cli(tmp: str) -> tuple:
     return hashlib.sha256(open(pc, "rb").read()).hexdigest(), stats, dt
 
 
+# ---------------------------------------------------------------------------
+# phase 8: scaling out
+# ---------------------------------------------------------------------------
+def run_sharded(stream, mesh, single_device) -> dict:
+    """8a: one batch of the loaded cell through the split over `mesh`, and
+    through `make_pipeline` on `single_device` twice: shard by shard (the
+    same shapes as the split) and as the whole batch in one call."""
+    import numpy as np
+    from ltesniffer_tpu_torch.parallel import sharding
+    from ltesniffer_tpu_torch.sniffer import pdcch_rx
+    from ltesniffer_tpu_torch.testing import loaded_cell
+    cell = loaded_cell.CELL
+    n = cell.sf_len
+    x = stream[:SHARD_BATCH * n].reshape(SHARD_BATCH, 1, n)
+    sfs = np.arange(SHARD_BATCH) % 10
+    fe = sharding.make_sharded_frontend(cell, mesh)
+    search, st = sharding.make_sharded_search(cell, SHARD_CFI, mesh)
+    run, _ = pdcch_rx.make_pipeline(cell, SHARD_CFI)
+    sizes = sorted({st["sizes"][f] + 16 for f in st["sizes"]})
+    keys = [f"{p}_{D}" for D in sizes for p in ("rnti", "bits")] + [
+        "cce_power", "snr_db"]
+    m = SHARD_BATCH // mesh.size
+
+    def sharded():
+        s_d, sf_d = sharding.shard_subframes(mesh, x, sfs)
+        return sharding.gather(search(fe(s_d, sf_d), sf_d), keys)
+
+    def single(step):
+        outs = [run(x[i:i + step], sfs[i:i + step], device=single_device)
+                for i in range(0, SHARD_BATCH, step)]
+        return sharding.gather(outs, keys)
+
+    def timed(fn):
+        fn()                            # the first call uploads constants
+        t0 = time.perf_counter()
+        out = fn()                      # the host reads every shard back
+        return out, time.perf_counter() - t0
+    got, t_sharded = timed(sharded)
+    want, t_single = timed(lambda: single(SHARD_BATCH))
+    return dict(got=got, want=want, per_shard=single(m), sizes=sizes,
+                st=st, sfs=sfs, t_sharded=t_sharded, t_single=t_single)
+
+
+def resolve_all(out: dict, st: dict, sfs):
+    """The native resolver (fresh state) over a search's subframes, fed
+    its per-size bits and RNTIs: the accepted DCIs, (subframe, RNTI,
+    format, L, CCE, payload bits)."""
+    from ltesniffer_tpu_torch import native
+    from ltesniffer_tpu_torch.testing import loaded_cell
+    search = native.NativeDciBlindSearch(loaded_cell.CELL,
+                                         native.default_native_manager())
+    acc = []
+    for b, sf in enumerate(sfs):
+        for a in search.resolve_subframe(out, b, st["locs"], st["nof_cce"],
+                                         int(sf), sfn=b // 10):
+            acc.append((b, a.rnti, a.fmt, a.l, a.ncce,
+                        bytes(a.payload.astype("uint8"))))
+    return acc
+
+
+def compare_sharded(r: dict):
+    """The split against make_pipeline on one card: shard by shard every
+    output equal; against the whole batch in one call, CCE powers within
+    SHARD_RTOL / SHARD_ATOL and the resolver's accepted DCIs (payloads
+    included) equal.  The card's matrix products pick their kernels by
+    shape, so a 64-subframe call and a 256-subframe call differ in the
+    last bit of most grid values, and candidates that carry no DCI decode
+    noise through near-tie path metrics: their RNTIs and bits are counted,
+    not required equal."""
+    import numpy as np
+    got, shard, full = r["got"], r["per_shard"], r["want"]
+    for k in got:
+        n = int((got[k] != shard[k]).sum())
+        if n:
+            raise AssertionError(f"8a: {k}: {n} values differ between the "
+                                 "split and make_pipeline on the same "
+                                 "shards")
+    np.testing.assert_allclose(got["cce_power"], full["cce_power"],
+                               rtol=SHARD_RTOL, atol=SHARD_ATOL)
+    e = float(np.abs(got["cce_power"] - full["cce_power"]).max())
+    acc_got = resolve_all(got, r["st"], r["sfs"])
+    acc_full = resolve_all(full, r["st"], r["sfs"])
+    if acc_got != acc_full:
+        diff = sorted(set(acc_got) ^ set(acc_full))[:5]
+        raise AssertionError(f"8a: accepted DCIs differ: {len(acc_got)} vs "
+                             f"{len(acc_full)}; e.g. {diff}")
+    n_cand = sum(got[f"rnti_{D}"].size for D in r["sizes"])
+    n_noise = sum(int((got[f"rnti_{D}"] != full[f"rnti_{D}"]).sum())
+                  for D in r["sizes"])
+    n_bits = sum(int((got[f"bits_{D}"] != full[f"bits_{D}"]).any(-1).sum())
+                 for D in r["sizes"])
+    log(f"  the split equals make_pipeline on the same shards (every output "
+        f"of {len(r['sizes'])} payload sizes, bit for bit); against the "
+        f"whole batch in one call: CCE power max |diff| {e:.3e} (rtol "
+        f"{SHARD_RTOL}, atol {SHARD_ATOL}), {len(acc_got)} accepted DCIs "
+        f"equal, {n_noise} RNTIs and {n_bits} bit rows of {n_cand} "
+        "candidates differ, none of them an accepted DCI")
+
+
+def run_blocks(device, stream, tmp: str) -> dict:
+    """8b: the loaded cell in time blocks on the card, merged, and the
+    single-host run beside it."""
+    import torch
+    from ltesniffer_tpu_torch.io import pcap as pcap_mod
+    from ltesniffer_tpu_torch.kernels import bcjr, turbo_decode
+    from ltesniffer_tpu_torch.parallel import multihost
+    from ltesniffer_tpu_torch.sniffer import core
+    from ltesniffer_tpu_torch.testing import loaded_cell, multihost_cell
+    cell = loaded_cell.CELL
+    wd = os.path.join(tmp, "blocks")
+    os.makedirs(wd)
+    sync = torch.cuda.synchronize \
+        if torch.device(device).type == "cuda" else None
+    bcjr.reset_launches()
+    turbo_decode.reset_launches()
+    blocks, cores, logs, secs = multihost_cell.run_hosts(
+        core, multihost, cell, stream, wd, sync=sync, device=device)
+    launches = (turbo_decode.LAUNCHES["turbo_decode"], bcjr.LAUNCHES["bcjr"])
+    merged_recs = multihost.merge_pcap_records(
+        [pcap_mod.read_pcap(os.path.join(wd, f"host{b.host}.pcap"))
+         for b in blocks], blocks)
+    single_path = os.path.join(tmp, "blocks_single.pcap")
+    _, _, t_single = multihost_cell.run_single(
+        core, cell, stream, single_path, sync=sync, device=device)
+    single_recs = pcap_mod.read_pcap(single_path)
+    return dict(
+        blocks=blocks, secs=secs, launches=launches,
+        dcis=multihost_cell.merged_dcis(multihost, logs, blocks),
+        results=multihost.merge_accepted([c.results for c in cores], blocks),
+        merged_recs=merged_recs, single_recs=single_recs, t_single=t_single,
+        n_differ=multihost_cell.count_differing(merged_recs, single_recs))
+
+
+def run_runner(stream, tmp: str) -> dict:
+    """8c: the process-per-block runner on a file of the stream."""
+    from ltesniffer_tpu_torch.io import iq as iq_mod, pcap as pcap_mod
+    from ltesniffer_tpu_torch.testing import loaded_cell, multihost_cell
+    cell = loaded_cell.CELL
+    iq_path = os.path.join(tmp, "loaded.iq")
+    iq_mod.write_iq(iq_path, stream)
+    out = os.path.join(tmp, "runner.pcap")
+    wd = os.path.join(tmp, "runner")
+    cmd = [sys.executable, "-m", "ltesniffer_tpu_torch.parallel.run_multihost",
+           "-i", iq_path, "-c", str(cell.n_id_cell), "-p", str(cell.n_prb),
+           "-P", str(cell.nof_ports), "-n", str(multihost_cell.N_HOSTS),
+           "-B", str(multihost_cell.BATCH),
+           "--overlap", str(multihost_cell.OVERLAP_SF), "-o", out,
+           "--workdir", wd]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                       timeout=600)
+    dt = time.perf_counter() - t0
+    for line in r.stdout.splitlines():
+        log(f"  runner: {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"the runner exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    children = [json.load(open(os.path.join(wd, f"host{h}.json")))
+                for h in range(multihost_cell.N_HOSTS)]
+    return dict(recs=pcap_mod.read_pcap(out), seconds=dt,
+                children=children)
+
+
+def scale_out(device, card: str, loaded_stream, placed: int,
+              tmp: str) -> dict:
+    """Phase 8: the split over devices, time blocks, the runner.  Returns
+    the launch counts for the `kernels` line."""
+    import torch
+    from ltesniffer_tpu_torch.parallel import sharding
+    from ltesniffer_tpu_torch.testing import loaded_cell, multihost_cell
+    with Phase(f"8a the split over devices: {SHARD_BATCH} subframes of "
+               f"the loaded cell at CFI {SHARD_CFI}"):
+        # 4 shards on cuda:0 always; with more cards also one per card
+        n_cards = torch.cuda.device_count()
+        meshes = [sharding.make_mesh(["cuda:0"] * 4)]
+        if n_cards > 1:
+            meshes.append(sharding.make_mesh())
+        for mesh in meshes:
+            n_on = len(set(mesh.devices))
+            where = (f"{mesh.size} shards on {n_on} card"
+                     f"{'s' if n_on > 1 else ''}")
+            log(f"  mesh {[str(d) for d in mesh.devices]} ({where})")
+            r8a = run_sharded(loaded_stream, mesh, "cuda:0")
+            compare_sharded(r8a)
+            log(f"  on {card}: split frontend + search "
+                f"{r8a['t_sharded']:.3f} s "
+                f"({SHARD_BATCH / r8a['t_sharded']:.1f} sf/s, {where}); "
+                f"make_pipeline on cuda:0 {r8a['t_single']:.3f} s "
+                f"({SHARD_BATCH / r8a['t_single']:.1f} sf/s); both warm, "
+                "host arrays in and out")
+        if n_cards < 2:
+            log("  the mesh of distinct cards did not run: only one card "
+                "is present")
+    with Phase("8b time blocks: the loaded cell, 512 subframes, 2 blocks, "
+               "overlap 200, batch 8"):
+        rec_mh = json.load(open(EXPECTED_MULTIHOST))
+        if rec_mh["params"] != multihost_cell.params() or \
+                rec_mh["placed"] != placed:
+            raise AssertionError("multihost record does not match the "
+                                 "scenario")
+        r8b = run_blocks(device, loaded_stream, tmp)
+        n_fused_mh, n_pass_mh = r8b["launches"]
+        for b, sec in zip(r8b["blocks"], r8b["secs"]):
+            n_b = b.warmup_sf + b.own_count_sf
+            log(f"  block {b.host}: {n_b} subframes ({b.warmup_sf} "
+                f"replayed, {b.own_count_sf} owned) in {sec:.2f} s: "
+                f"{n_b / sec:.1f} sf/s, {b.own_count_sf / sec:.1f} owned "
+                f"sf/s on {card}")
+        t_blocks = sum(r8b["secs"])
+        log(f"  whole run, blocks one after another: "
+            f"{loaded_cell.N_SF / t_blocks:.1f} owned sf/s "
+            f"({t_blocks:.2f} s); single host at batch "
+            f"{multihost_cell.BATCH}: "
+            f"{loaded_cell.N_SF / r8b['t_single']:.1f} sf/s "
+            f"({r8b['t_single']:.2f} s)")
+        log(f"  merged: {len(r8b['dcis'])} DCIs, {len(r8b['results'])} "
+            f"results, {len(r8b['merged_recs'])} pcap records; single "
+            f"host {len(r8b['single_recs'])}; differing "
+            f"{r8b['n_differ']} (JAX package: "
+            f"{rec_mh['n_records_differ']})")
+        log(f"  launches in this run: turbo_decode (fused) {n_fused_mh}, "
+            f"bcjr (pass kernel) {n_pass_mh}")
+        compare_loaded(rec_mh, types.SimpleNamespace(
+            results=r8b["results"]), r8b["dcis"])
+        if r8b["n_differ"] != rec_mh["n_records_differ"]:
+            raise AssertionError(
+                f"{r8b['n_differ']} merged records differ from the "
+                f"single-host run; the JAX package's merge: "
+                f"{rec_mh['n_records_differ']}")
+        if n_fused_mh <= 0:
+            raise AssertionError("the time blocks launched no fused "
+                                 "turbo kernel")
+        if n_pass_mh != 0:
+            raise AssertionError(f"the time blocks launched the pass "
+                                 f"kernel {n_pass_mh} times")
+    with Phase("8c the runner: one process per block"):
+        r8c = run_runner(loaded_stream, tmp)
+        for h, ch in enumerate(r8c["children"]):
+            log(f"  child {h} on {ch['device']}: {ch['subframes']} "
+                f"subframes in {ch['seconds']:.2f} s; launches "
+                f"{ch['launches']}")
+        log(f"  runner: {len(r8c['recs'])} merged records in "
+            f"{r8c['seconds']:.1f} s wall with start-up on {card}")
+        key = multihost_cell.pcap_key
+        if [key(x) for x in r8c["recs"]] != \
+                [key(x) for x in r8b["merged_recs"]]:
+            raise AssertionError("the runner's merged pcap records "
+                                 "differ from 8b's")
+        if any(ch["launches"]["turbo_decode"] <= 0 or
+               ch["launches"]["bcjr"] for ch in r8c["children"]):
+            raise AssertionError("a runner child did not decode through "
+                                 "the fused kernel alone")
+    return {"fused": n_fused_mh, "pass": n_pass_mh,
+            "runner": [ch["launches"]["turbo_decode"]
+                       for ch in r8c["children"]]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -776,7 +1063,8 @@ def main() -> int:
         with Phase("scenarios (port generator)"):
             _, _, golden_truth = stream_cell.golden_scenario()
             t0 = time.perf_counter()
-            words, scales, placed, loaded_truth = loaded_cell.build_packed()
+            loaded_stream, placed, loaded_truth = loaded_cell.build_stream()
+            words, scales = loaded_cell.pack(loaded_stream)
             log(f"  loaded cell: {loaded_cell.N_SF} subframes, {placed} "
                 f"placed TBs, built in {time.perf_counter() - t0:.1f} s")
             rec = json.load(open(EXPECTED))
@@ -1162,6 +1450,7 @@ def main() -> int:
             if sha != rec_c["pcap_sha256"] or stats != rec_c["stats"]:
                 raise AssertionError("the CLI's pcap or stats differ from the "
                                      "JAX CLI's")
+        mh = scale_out(device, card, loaded_stream, placed, tmp)
         t2, t12, t8 = td[2], td[12], td[MIMO_N_ITER]
         line = {"kernels": [{
             "name": "turbo_decode", "route": "cuda",
@@ -1185,6 +1474,8 @@ def main() -> int:
                                            "bound_by", "lanes_ms")}},
             "stream": {"launches": n_fused_s},
             "ul_stream": {"launches": n_fused_us},
+            "multihost": {"launches": mh["fused"],
+                          "runner_launches": mh["runner"]},
         }, {
             "name": "bcjr", "route": "cuda",
             "source": "ltesniffer_tpu_torch/kernels/csrc/bcjr.cu",
@@ -1193,7 +1484,7 @@ def main() -> int:
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": None,
             "launches_mimo": n_pass_m, "launches_ul": n_pass_u,
-            "launches_stream": n_pass_s}]}
+            "launches_stream": n_pass_s, "launches_multihost": mh["pass"]}]}
         log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1201,5 +1492,36 @@ def main() -> int:
     return 0
 
 
+def main_scale_out() -> int:
+    """`chip_smoke.py --scale-out`: phase 1's build and phase 8 alone, for
+    a machine with several cards (the no-argument run needs one)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card "
+              "only", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from ltesniffer_tpu_torch import native
+    from ltesniffer_tpu_torch.kernels import bcjr, turbo_decode
+    from ltesniffer_tpu_torch.testing import loaded_cell
+    kind = torch.cuda.get_device_name(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase("1 card and build"):
+            card = card_line()
+            log(card)
+            log(f"  {torch.cuda.device_count()} cards")
+            with concurrent.futures.ThreadPoolExecutor(3) as ex:
+                for f in [ex.submit(m.build)
+                          for m in (turbo_decode, bcjr, native)]:
+                    f.result()
+        loaded_stream, placed, _ = loaded_cell.build_stream()
+        mh = scale_out("cuda", card, loaded_stream, placed, tmp)
+        log(json.dumps({"scale_out_launches": mh}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_scale_out() if sys.argv[1:] == ["--scale-out"] else main())

@@ -137,7 +137,9 @@ def _check(x, shape, name):
 
 
 def bcjr_cuda(apr, l_sys, l_par, a0, bK):
-    """Launch the CUDA kernel on the current stream (CUDA tensors only)."""
+    """Launch the CUDA kernel on the current stream of the tensors'
+    device, with that device made current for the launch (CUDA tensors
+    only)."""
     W, L = apr.shape
     if W not in (8, 16, 32):
         raise ValueError(f"bcjr: window {W} not in (8, 16, 32)")
@@ -154,10 +156,13 @@ def bcjr_cuda(apr, l_sys, l_par, a0, bK):
     ext = torch.empty((W, L), dtype=torch.float32, device=dev)
     a_end = torch.empty((8, L), dtype=torch.float32, device=dev)
     b_start = torch.empty((8, L), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(apr.data_ptr(), l_sys.data_ptr(), l_par.data_ptr(),
-             a0.data_ptr(), bK.data_ptr(), ext.data_ptr(), a_end.data_ptr(),
-             b_start.data_ptr(), L, W, stream)
+    # the launch goes to the current device's context: make it the
+    # tensors' (tensors on cuda:1 while cuda:0 is current)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(apr.data_ptr(), l_sys.data_ptr(), l_par.data_ptr(),
+                 a0.data_ptr(), bK.data_ptr(), ext.data_ptr(),
+                 a_end.data_ptr(), b_start.data_ptr(), L, W, stream)
     if err != 0:
         raise RuntimeError(f"bcjr kernel launch failed: cudaError {err}")
     LAUNCHES["bcjr"] += 1

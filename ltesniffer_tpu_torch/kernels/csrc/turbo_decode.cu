@@ -65,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "bcjr_step.cuh"
 
 namespace {
@@ -78,6 +80,7 @@ constexpr int kMinBlocks = 2;
 // of alphas in registers; 16 spills under the cap and ran slower.
 constexpr int kSeg = 8;
 constexpr int kMaxSmem = 232448;        // a block's dynamic shared memory
+constexpr int kMaxDevices = 64;         // devices with a per-device flag
 
 // QPP interleaver pi(i) = (f1 i + f2 i^2) mod K, walked with its first
 // difference g(i) = pi(i+1) - pi(i) mod K, whose own difference is 2 f2.
@@ -316,13 +319,21 @@ turbo_decode_kernel(const float* __restrict__ d_llrs,
 template <int W>
 cudaError_t launch(const float* d, float* llr, uint8_t* bits, int B, int K,
                    int n_iter, int G, const Qpp& q, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        turbo_decode_kernel<W>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  // The shared-memory limit is an attribute of the kernel on the device
+  // that is current when it is set, so it is set once per device (the
+  // wrapper makes the tensors' device current); devices past the table's
+  // end set it on every launch.
+  static std::atomic<bool> attr_set[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool known = dev >= 0 && dev < kMaxDevices;
+  if (!known || !attr_set[dev].load()) {
+    e = cudaFuncSetAttribute(turbo_decode_kernel<W>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSmem);
     if (e != cudaSuccess) return e;
-    attr_set = true;
+    if (known) attr_set[dev].store(true);
   }
   const int NW = K / W;
   const int threads = G * NW;

@@ -96,7 +96,8 @@ def build():
 
 
 def turbo_decode_cuda(d_llrs, K: int, n_iter: int):
-    """Launch the fused decode on the current stream (CUDA tensors only).
+    """Launch the fused decode on the current stream of d_llrs' device,
+    with that device made current for the launch (CUDA tensors only).
 
     d_llrs: (B, 3, K+4) float32, contiguous.  Returns (bits (B, K) uint8,
     llr (B, K) float32) on d_llrs' device."""
@@ -128,9 +129,12 @@ def turbo_decode_cuda(d_llrs, K: int, n_iter: int):
         return bits, llr
     fn = _library()
     f1, f2 = tables_data.QPP_F1_F2[K]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(d_llrs.data_ptr(), llr.data_ptr(), bits.data_ptr(), B, K,
-             int(n_iter), f1, f2, geo["W"], geo["G"], stream)
+    # the launch goes to the current device's context: make it the
+    # tensor's (a tensor on cuda:1 while cuda:0 is current)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(d_llrs.data_ptr(), llr.data_ptr(), bits.data_ptr(), B, K,
+                 int(n_iter), f1, f2, geo["W"], geo["G"], stream)
     if err != 0:
         raise RuntimeError(f"turbo_decode kernel launch failed: cudaError "
                            f"{err}")

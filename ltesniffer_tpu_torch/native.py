@@ -11,6 +11,13 @@ equal.
 No silent fallback: when the library cannot be built or loaded,
 `load_library` raises, and so does a core configured with
 `use_native=True`.  `use_native=False` selects the Python resolver.
+
+With LTESNIFFER_NATIVE_ASAN=1 in the environment, an
+AddressSanitizer-instrumented build (`-O1 -g -fsanitize=address
+-fno-omit-frame-pointer`) goes to `_build/libresolver_asan_{hash}.so`
+instead, keyed the same way (the reference ships ASAN as a build option,
+`CMakeLists.txt:339-351`).  The process must preload libasan
+(`testing/asan_resolver_fuzz.py`, `tests/test_torch_native_asan.py`).
 """
 from __future__ import annotations
 
@@ -32,18 +39,31 @@ SRC = os.path.join(_PKG, "csrc", "resolver.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 CXX = "g++"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+ASAN_FLAGS = ("-O1", "-g", "-fsanitize=address", "-fno-omit-frame-pointer",
+              "-shared", "-fPIC", "-std=c++17")
 
 BUILD_SECONDS = {}      # "resolver" -> seconds of the g++ run in this process
 
 _lib = None
 
 
+def _asan() -> bool:
+    return os.environ.get("LTESNIFFER_NATIVE_ASAN") == "1"
+
+
+def _flags():
+    return ASAN_FLAGS if _asan() else CXX_FLAGS
+
+
 def library_path() -> str:
-    """_build/libresolver_{hash}.so: the hash covers the source and flags,
-    so an edited source never loads a stale library."""
-    blob = open(SRC, "rb").read() + " ".join(CXX_FLAGS).encode()
+    """_build/libresolver_{hash}.so (libresolver_asan_{hash}.so with
+    LTESNIFFER_NATIVE_ASAN=1): the hash covers the source and flags, so
+    an edited source never loads a stale library."""
+    flags = _flags()
+    blob = open(SRC, "rb").read() + " ".join(flags).encode()
     tag = hashlib.sha1(blob).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"libresolver_{tag}.so")
+    name = "libresolver_asan" if _asan() else "libresolver"
+    return os.path.join(BUILD_DIR, f"{name}_{tag}.so")
 
 
 def _build(so: str):
@@ -54,7 +74,7 @@ def _build(so: str):
     tmp = f"{so}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
     try:
-        r = subprocess.run([CXX, *CXX_FLAGS, "-o", tmp, SRC],
+        r = subprocess.run([CXX, *_flags(), "-o", tmp, SRC],
                            capture_output=True, text=True)
     except OSError as e:
         raise RuntimeError(f"native resolver: cannot run {CXX!r}: {e}") \

@@ -136,6 +136,16 @@ def _host(bits) -> np.ndarray:
         else np.asarray(bits)
 
 
+def decode_mib(grids_b, h_b, noise_var_b, cell: CellConfig) -> MibResult:
+    """Try to decode the MIB from one subframe-0 grid.
+
+    grids_b: (RX, 14, n_sc, 2); h_b: (RX, P, 14, n_sc, 2); noise_var_b: a
+    0-dim tensor — one subframe of the frontend's batch, on its device.
+    The only device->host transfer is the decoded-bit matrix."""
+    return resolve_mib_bits(_host(_make_decoder(cell)(grids_b, h_b,
+                                                      noise_var_b)))
+
+
 def decode_mib_at(grids_B, h_B, noise_var_B, i: int,
                   cell: CellConfig) -> MibResult:
     """decode_mib on batch position ``i``."""

@@ -12,6 +12,11 @@ walks the CCE tree sequentially, decoding candidates on demand
 The host-side acceptance resolver (`dci_search.py`) then replays the
 reference's sequential pruning semantics over these precomputed results.
 The packed `cand_fused` word layout equals the JAX package's word for word.
+
+Two searches: `make_unified_search` (the core's: the CFI rides as data)
+and the fixed-CFI search (`make_pipeline`, `make_search_from_grids`:
+the sharded path and the tests), which also returns every payload size's
+bits and RNTIs.
 """
 from __future__ import annotations
 
@@ -24,8 +29,8 @@ import torch
 from ltesniffer_tpu_torch.phy import conv, crc, dci as dci_mod, grid as grid_mod
 from ltesniffer_tpu_torch.phy import search_space
 from ltesniffer_tpu_torch.phy.params import CellConfig
-from ltesniffer_tpu_torch.kernels import chest, demapper, viterbi
-from ltesniffer_tpu_torch.kernels.cplx import const
+from ltesniffer_tpu_torch.kernels import chest, demapper, ofdm, viterbi
+from ltesniffer_tpu_torch.kernels.cplx import const, to_ri
 
 
 @functools.lru_cache(maxsize=16)
@@ -91,12 +96,17 @@ def _f16_bits(x):
 
 
 def _candidate_decode_tail(llr, cce_power, size_consts, n_loc: int, B: int,
-                           scalars=None):
+                           scalars=None) -> dict:
     """Shared tail of the blind search: de-rate-match every payload size
     (constant-matrix matmul), ONE fused Viterbi scan over all (size x
     location x subframe) candidates, CRC-XOR RNTIs, and the fused host
     word matrix (meta | payload words | cce power) whose single host read
-    covers resolve + payloads."""
+    covers resolve + payloads.
+
+    Returns per payload size D: bits_{D} (B, n_loc, D) uint8 and
+    rnti_{D} (B, n_loc) int64; cand_meta (B, n_loc, S) int64 [rnti |
+    bit0 << 16]; cand_pay (B, n_loc, S, 2) int64 (u32 payload words);
+    cand_fused (B, W) int32."""
     dev = llr.device
     flats = []
     for D, per_lvl in size_consts.items():
@@ -111,6 +121,7 @@ def _candidate_decode_tail(llr, cce_power, size_consts, n_loc: int, B: int,
     all_bits = viterbi.viterbi_decode_tb_multi(flats)
     w16 = const(_W16, dev)
     w32 = const(_W32, dev)
+    out = {}
     metas = []
     pays = []
     for D, bits in zip(size_consts.keys(), all_bits):
@@ -119,6 +130,8 @@ def _candidate_decode_tail(llr, cce_power, size_consts, n_loc: int, B: int,
         calc = crc.batched_crc_to_int(payload, crc.CRC16)
         rx16 = torch.sum(bits[..., D - 16:].to(torch.int64) * w16, dim=-1)
         rnti = calc ^ rx16
+        out[f"bits_{D}"] = bits
+        out[f"rnti_{D}"] = rnti
         # candidate meta word: rnti (16 bit) | payload bit0 << 16 — all
         # the host resolver needs pre-acceptance (0/1A flag per
         # `falcon_pdcch.c:146-152`)
@@ -127,12 +140,13 @@ def _candidate_decode_tail(llr, cce_power, size_consts, n_loc: int, B: int,
         pad = torch.nn.functional.pad(payload, (0, 64 - (D - 16)))
         pays.append(torch.sum(pad.reshape(B, n_loc, 2, 32).to(torch.int64)
                               * w32, dim=-1))
-    cand_pay = torch.stack(pays, dim=-2)               # (B, n_loc, S, 2)
+    cand_meta = out["cand_meta"] = torch.stack(metas, dim=-1)
+    cand_pay = out["cand_pay"] = torch.stack(pays, dim=-2)  # (B,n_loc,S,2)
     # the fused host transfer is PACKED tight: RNTIs two per word, the
     # format-0/1A discriminator bits as a bitmap, CCE powers as f16
     # pairs.  `unpack_fused` reverses all of it.
     m = n_loc * len(metas)
-    meta_flat = torch.stack(metas, dim=-1).reshape(B, -1)   # (B, n_loc*S)
+    meta_flat = cand_meta.reshape(B, -1)                # (B, n_loc*S)
     r_packed = _pack_pairs16(meta_flat & 0xFFFF)        # (B, mp/2)
     bit0 = (meta_flat >> 16) & 1
     mb = -(-m // 32) * 32
@@ -145,7 +159,8 @@ def _candidate_decode_tail(llr, cce_power, size_consts, n_loc: int, B: int,
         # SAME transfer
         parts.append(_pack_pairs16(_f16_bits(scalars)))    # (B, 2)
     parts.append(cand_pay.reshape(B, -1))                   # (B, m*2)
-    return _u32_to_i32(torch.cat(parts, dim=1))
+    out["cand_fused"] = _u32_to_i32(torch.cat(parts, dim=1))
+    return out
 
 
 def unpack_fused(fused: np.ndarray, n_loc: int, S: int, nof_cce: int,
@@ -260,7 +275,8 @@ def make_unified_search(cell: CellConfig):
             torch.abs(llr[:, :72 * nof_cce3]).reshape(B, nof_cce3, 72),
             dim=-1)
         return {"cand_fused": _candidate_decode_tail(
-            llr, cce_power, size_consts, n_loc, B, scalars=scalars)}
+            llr, cce_power, size_consts, n_loc, B,
+            scalars=scalars)["cand_fused"]}
 
     st = dict(st3)
     st["nof_cce_of"] = tuple(nof_cce_of)
@@ -272,3 +288,91 @@ def unpack_payload(words: np.ndarray, d_payload: int) -> np.ndarray:
     w = np.asarray(words, dtype=np.uint32)
     bits = ((w[:, None] >> np.arange(32, dtype=np.uint32)) & 1).astype(np.uint8)
     return bits.reshape(-1)[:d_payload]
+
+
+@functools.lru_cache(maxsize=16)
+def _build_pipeline(cell: CellConfig, cfi: int):
+    """The fixed-CFI blind search, for callers that know the CFI (the
+    sharded path, tests): every subframe of the batch is searched with
+    cfi's control region.
+
+    run(samples (B, RX, sf_len) complex or (B, RX, sf_len, 2) float
+    pairs, sf_idx (B,), device="cuda") -> dict of snr_db (B,), noise_var
+    (B,), cce_power (B, nof_cce), cfo (B,) zeros, grids, h, and per
+    payload size D: bits_{D} (B, n_loc, D) uint8, rnti_{D} (B, n_loc)
+    int32; cand_meta (B, n_loc, S) int32, cand_pay (B, n_loc, S, 2) int32
+    (the u32 payload words' bit patterns), cand_fused (B, W) int32.
+    from_grids: the same outputs, fed by the shared frontend; tensors on
+    the grids' device.
+    """
+    st = _static_maps(cell, cfi)
+    nof_cce = st["nof_cce"]
+    n_loc = len(st["locs"])
+    gather_idx = st["gather_idx"].astype(np.int64)
+    # full PDCCH stream length incl. NIL-padded tail quadruplets
+    n_bits_tot = 8 * (len(gather_idx) // 4)
+    # descrambling signs per subframe index (+1 for bit 0, -1 for bit 1)
+    scr_j = np.stack([
+        1.0 - 2.0 * grid_mod.pdcch_scrambling(cell, sf, n_bits_tot)
+        for sf in range(10)]).astype(np.float32)          # (10, n_bits)
+    size_consts = _size_consts_of(st)
+    n_ports = cell.nof_ports
+
+    def from_grids(grids, h, noise_var, snr_db, sf_idx):
+        dev = grids.device
+        B = grids.shape[0]
+        gflat = grids.reshape(B, grids.shape[1], -1, 2)
+        hflat = h.reshape(B, h.shape[1], h.shape[2], -1, 2)
+        gi = const(gather_idx, dev)
+        y = gflat[:, :, gi, :]                                # (B,RX,M,2)
+        hh = hflat[:, :, :, gi, :]                            # (B,RX,P,M,2)
+        x = chest.equalize_ports(y, hh, noise_var, n_ports)   # (B, M)
+        llr = demapper.qpsk_llr(x) * const(scr_j, dev)[sf_idx]
+        cce_power = torch.mean(
+            torch.abs(llr[:, :72 * nof_cce]).reshape(B, nof_cce, 72),
+            dim=-1)                                           # (B, nof_cce)
+        out = {"snr_db": snr_db, "noise_var": noise_var,
+               "cce_power": cce_power,
+               "cfo": torch.zeros((B,), dtype=torch.float32, device=dev),
+               "grids": grids, "h": h}   # reused by the PDSCH phase
+        tail = _candidate_decode_tail(llr, cce_power, size_consts, n_loc,
+                                      B)
+        for k, v in tail.items():            # the reference's int32 words
+            if k == "cand_pay":
+                v = _u32_to_i32(v)
+            elif not k.startswith("bits"):
+                v = v.to(torch.int32)
+            out[k] = v
+        return out
+
+    def run_ri(samples_ri, sf_idx):
+        grids = ofdm.demodulate_ri(samples_ri, cell)   # (B,RX,14,n_sc,2)
+        ch = chest.estimate(grids, sf_idx, cell)
+        return from_grids(grids, ch["h"], ch["noise_var"], ch["snr_db"],
+                          sf_idx)
+
+    def run(samples, sf_idx, device="cuda"):
+        if isinstance(samples, torch.Tensor):
+            x = samples
+        else:
+            x = np.asarray(samples)
+            x = torch.from_numpy(to_ri(x) if np.iscomplexobj(x) else
+                                 np.ascontiguousarray(x, np.float32))
+        sf = torch.as_tensor(np.asarray(sf_idx), dtype=torch.int64)
+        return run_ri(x.to(device), sf.to(device))
+
+    return {"run": run, "from_grids": from_grids, "st": st}
+
+
+def make_pipeline(cell: CellConfig, cfi: int):
+    """(run(samples, sf_idx, device="cuda"), static maps) — see
+    `_build_pipeline`."""
+    b = _build_pipeline(cell, cfi)
+    return b["run"], b["st"]
+
+
+def make_search_from_grids(cell: CellConfig, cfi: int):
+    """(run(grids, h, noise_var, snr_db, sf_idx), static maps) for use after
+    the shared frontend (`frontend.make_frontend`)."""
+    b = _build_pipeline(cell, cfi)
+    return b["from_grids"], b["st"]

@@ -1009,6 +1009,14 @@ def escalate_finish(pb: PendingPdschBatch, h,
     return n_fixed
 
 
+def escalate_failures(pb: PendingPdschBatch, esc_idx: List[int],
+                      n_iter: int,
+                      soft_buffers: Optional[Dict] = None) -> int:
+    """Synchronous dispatch+finish escalation (tests / simple callers)."""
+    return escalate_finish(pb, escalate_dispatch(pb, esc_idx, n_iter),
+                           soft_buffers=soft_buffers)
+
+
 def decode_grants_batch(grids, h, noise_var, cell: CellConfig,
                         jobs: List[GrantJob],
                         soft_buffers: Optional[Dict] = None,

@@ -85,11 +85,17 @@ def build_stream(cell: CellConfig = CELL, n_sf: int = N_SF,
     return sb.stream(), placed, sb.truth
 
 
-def build_packed(n_sf: int = N_SF, **kw):
-    """-> ((n_sf, 1, n/2) packed int8 IQ words, (n_sf,) scales, placed,
-    truth): the pre-quantized form `LTESnifferCore.run_packed` takes."""
-    stream, placed, truth = build_stream(n_sf=n_sf, **kw)
+def pack(stream, n_sf: int = N_SF):
+    """A stream of `build_stream` -> ((n_sf, 1, n/2) packed int8 IQ words,
+    (n_sf,) scales): the pre-quantized form `LTESnifferCore.run_packed`
+    takes."""
     n = CELL.sf_len
-    words, scales = cplx.to_i8_packed(
-        stream[:n_sf * n].reshape(n_sf, 1, n))
+    return cplx.to_i8_packed(stream[:n_sf * n].reshape(n_sf, 1, n))
+
+
+def build_packed(n_sf: int = N_SF, **kw):
+    """-> (packed int8 IQ words, scales, placed, truth): `pack` of
+    `build_stream`."""
+    stream, placed, truth = build_stream(n_sf=n_sf, **kw)
+    words, scales = pack(stream, n_sf)
     return words, scales, placed, truth

@@ -287,3 +287,48 @@ def test_run_stream_on_card_equals_cpu(card):
     assert out["cuda"][2] == out["cpu"][2]
     assert out["cuda"][1]["resyncs"] >= 1
     assert sum(1 for r in out["cuda"][0] if r[3]) >= 15
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.cuda
+def test_fused_decode_on_second_card(two_cards):
+    """A K=6144 decode (more than 48 KiB of shared memory per CTA) on
+    cuda:1 while cuda:0 is current, after one on cuda:0: the wrapper
+    launches on the tensor's card and the kernel's shared-memory limit is
+    set there too; the bits equal the plain version's."""
+    first, second = two_cards
+    rng = np.random.default_rng(6144)
+    K, B = 6144, 3
+    _, llr, _ = _coded(K, B, rng)
+    want, _ = turbo.make_decoder(K, 2)(torch.from_numpy(llr))
+    with torch.cuda.device(first):
+        for dev in (first, second):
+            bits, _ = turbo.make_decoder(K, 2)(torch.from_numpy(llr).to(dev))
+            torch.cuda.synchronize(dev)
+            assert bits.device == dev
+            np.testing.assert_array_equal(bits.cpu().numpy(), want.numpy())
+        assert torch.cuda.current_device() == first.index
+
+
+@pytest.mark.cuda
+def test_bcjr_pass_on_second_card(two_cards):
+    """One pass of the per-pass kernel on cuda:1 while cuda:0 is current
+    equals the plain twin."""
+    first, second = two_cards
+    g = torch.Generator().manual_seed(2)
+    L = 1024
+    ins = [(torch.randn((16, L), generator=g) * 3.0).to(second)
+           for _ in range(3)]
+    ins += [torch.randn((8, L), generator=g).to(second) for _ in range(2)]
+    with torch.cuda.device(first):
+        got = bcjr.bcjr(*ins)
+        torch.cuda.synchronize(second)
+    for a, b in zip(got, bcjr.bcjr_plain(*ins)):
+        assert a.device == second
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)

@@ -2,8 +2,8 @@
 
 * In a fresh interpreter that refuses `jax`, `jaxlib` and
   `ltesniffer_tpu` (but not `ltesniffer_tpu_torch`), every module of the
-  port (the CLI, cell search and SDR sources among them) and
-  chip_smoke.py import.
+  port (the CLI, cell search, SDR sources and `parallel/` among them)
+  and chip_smoke.py import.
 * The port's scenario generator reproduces the JAX package's IQ (the
   golden scenario, the first 4 loaded-cell subframes, the UL golden's
   dual-carrier streams and the first 6 subframes of the UL cell) within
@@ -90,6 +90,13 @@ LIVE_MODULES = {"ltesniffer_tpu_torch.cli",
                 "ltesniffer_tpu_torch.sniffer.sync",
                 "ltesniffer_tpu_torch.io.sdr",
                 "ltesniffer_tpu_torch.testing.stream_cell"}
+# the scale-out slice's modules: the split over devices, time blocks and
+# their runner, and the scenarios of the multi-host run and the ASAN fuzz
+PARALLEL_MODULES = {"ltesniffer_tpu_torch.parallel"} | {
+    "ltesniffer_tpu_torch.parallel." + m for m in (
+        "sharding", "multihost", "run_multihost")} | {
+    "ltesniffer_tpu_torch.testing.multihost_cell",
+    "ltesniffer_tpu_torch.testing.asan_resolver_fuzz"}
 
 
 def test_port_imports_without_jax_or_reference():
@@ -98,9 +105,10 @@ def test_port_imports_without_jax_or_reference():
                        cwd=REPO)
     assert r.returncode == 0, r.stderr[-3000:]
     lines = r.stdout.strip().splitlines()
-    assert int(lines[-1]) >= 65
+    assert int(lines[-1]) >= 71
     assert UL_MODULES <= set(lines[-2].split())
     assert LIVE_MODULES <= set(lines[-2].split())
+    assert PARALLEL_MODULES <= set(lines[-2].split())
 
 
 def test_refusal_is_effective():

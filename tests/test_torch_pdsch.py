@@ -214,6 +214,38 @@ def test_escalation_matches():
     assert flips[1][1] > 0, flips
 
 
+def test_escalate_failures_matches():
+    """The synchronous `escalate_failures` of both packages, after a
+    2-iteration pass, at 12 iterations: the same jobs flip to CRC-ok, and
+    the port's equals its own dispatch + finish."""
+    rng = np.random.default_rng(22)
+    spec = [(0x301 + i, _mask(8 * i, 8 * i + 8), 4, 15) for i in range(6)]
+    grants, txs = [], []
+    for rnti, mask, qm, itbs in spec:
+        tbs = tables.tbs_lookup(itbs, 8)
+        tb = rng.integers(0, 2, tbs).astype(np.uint8)
+        txs.append((rnti, mask, qm, tb, 0))
+        grants.append((0, 3, rnti, mask, qm, tbs, 0))
+    iq = _tx(3, txs, rng, noise=0.35)
+    ref, port = _grids([iq], [3])
+    flips = []
+    for mod, grids, cell, esc in (
+            (ref_pdsch, ref, REF_CELL, ref_pdsch.escalate_failures),
+            (pdsch_rx, port, CELL, pdsch_rx.escalate_failures),
+            (pdsch_rx, port, CELL, lambda pb, idx, n: pdsch_rx.
+             escalate_finish(pb, pdsch_rx.escalate_dispatch(pb, idx, n)))):
+        pb = mod.dispatch_grants_batch(*grids, cell, _jobs(mod, grants),
+                                       n_iter=2)
+        res = mod.finish_grants_batch(pb)
+        first = [r.crc_ok for r in res]
+        n = esc(pb, [i for i, r in enumerate(res) if not r.crc_ok], 12)
+        flips.append((first, n, [r.crc_ok for r in pb.results],
+                      [None if r.tb_bits is None else r.tb_bits.tolist()
+                       for r in pb.results]))
+    assert flips[0] == flips[1] == flips[2]
+    assert flips[1][1] > 0 and not all(flips[1][0]), flips
+
+
 def test_gold_basis_built_once_per_length():
     """The PDSCH descrambler's Gold bases are cached per length without a
     bound: a loaded cell cycles through more lengths (RE bucket x Qm) than
