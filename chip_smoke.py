@@ -8,13 +8,14 @@ Drives `ltesniffer_tpu_torch` — the PyTorch port of the JAX package
 `ltesniffer_tpu` — through its main path on the card and fails (non-zero
 exit) if any phase fails:
 
-1. card and build: the card's name and power limit; build the two
+1. card and build: the card's name and power limit; build the three
    hand-written CUDA kernels with nvcc and the native resolver with g++,
-   all three side by side: the fused whole-decode turbo kernel
+   all four side by side: the fused whole-decode turbo kernel
    (kernels/csrc/turbo_decode.cu, the main path's decoder), the per-pass
-   BCJR kernel (kernels/csrc/bcjr.cu, the earlier design) and the host
-   resolver (csrc/resolver.cpp); their build times and ptxas
-   registers/spills.
+   BCJR kernel (kernels/csrc/bcjr.cu, the earlier design), the
+   tail-biting Viterbi of the blind search and the MIB
+   (kernels/csrc/viterbi_tb.cu) and the host resolver
+   (csrc/resolver.cpp); their build times and ptxas registers/spills.
 2. kernels vs plain version: at the K values of the loaded cell's and the
    golden scenario's grants and K = 40 and 6144, n_iter 2 and 12, at the
    uplink's K values (the UL cell's and UL golden's K = 832 and the UCI
@@ -31,6 +32,18 @@ exit) if any phase fails:
    shape (K = 832, the code blocks of one batch of 256 subframes, n_iter
    2), of one MIMO-shaped decode at n_iter 8, and of one pass, beside
    their bounds.
+2b. the Viterbi kernel against its plain version (the step loop) on the
+   same card tensors, bits equal word for word: seeded random LLRs at the
+   six payload sizes of one loaded-cell search call (64 subframes x 157
+   locations each) in one call, the MIB (D = 40 x 12), all-zero LLRs,
+   N = 1 and N not a multiple of the warps per block, the noiseless round
+   trip of random messages through the port's encoder, and the loaded
+   cell's real search over 64 subframes (`make_unified_search`: cand_fused
+   through the kernel equals cand_fused through the plain step loop).
+   Times of one search call's six groups: kernel, plain, bound.
+   From phase 3 on, every path (each of 3-8, the CLI's and the runner's
+   processes included) must launch the Viterbi kernel and run the plain
+   step loop on the card no time.
 3. golden: the golden scenario (tests/golden/dl_mode.pcap), built by the
    port's own generator, run on the card; the pcap's sha256 must equal.
 4. loaded cell at full width (20 MHz, 512 subframes, batch 256, with its
@@ -110,7 +123,8 @@ exit) if any phase fails:
        -n 2 --overlap 200` in a subprocess on a file of the stream (one
        OS process per block, child k on cuda:{k % cards}): exit 0, merged
        pcap records equal 8b's; the wall time with start-up.
-9. the `kernels` JSON line, then the result line.
+9. the `kernels` JSON line (`viterbi_tb`'s entry carries the launches of
+   every path), then the result line.
 
 Imports torch, numpy, the standard library and the port only — no JAX.
 Writes only under a temporary directory and ltesniffer_tpu_torch/_build/.
@@ -157,6 +171,9 @@ BCJR_REPLACES = "ltesniffer_tpu/kernels/turbo_pallas.py:125"
 # the fused kernel replaces the same TPU kernel together with its caller
 # ltesniffer_tpu/kernels/turbo.py:255 (_make_decoder_pallas)
 TURBO_REPLACES = "ltesniffer_tpu/kernels/turbo_pallas.py:125"
+# XLA, not Pallas: _acs_scan (:56) and _traceback (:82), reached through
+# viterbi_decode_tb (:98) and viterbi_decode_tb_multi (:119)
+VITERBI_REPLACES = "ltesniffer_tpu/kernels/viterbi.py:56"
 
 
 def log(msg: str):
@@ -401,6 +418,160 @@ def time_bcjr(K: int, B: int, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the Viterbi kernel against its plain version
+# ---------------------------------------------------------------------------
+def search_chunk() -> int:
+    """Subframes per blind-search call, as the core chunks them."""
+    from ltesniffer_tpu_torch.sniffer import core
+    return core.LTESnifferCore.SEARCH_CHUNK
+
+
+def search_shapes(cell) -> list:
+    """(N, D) of the groups one blind-search call of search_chunk()
+    subframes hands the Viterbi: every location at every payload size."""
+    from ltesniffer_tpu_torch.sniffer import pdcch_rx
+    st = pdcch_rx.make_unified_search(cell)[1]
+    return [(search_chunk() * len(st["locs"]), D)
+            for D in st["size_order"]]
+
+
+def viterbi_equal(name: str, groups, host_rows: int = 0) -> int:
+    """One call of the kernel and of the plain version on the same card
+    tensors: bits equal word for word, one launch counted.  With
+    `host_rows`, the kernel's first rows of each group are also held
+    against the plain version on the host (logged, not required).
+    Returns the largest |kernel bit - plain bit|."""
+    import numpy as np
+    import torch
+    from ltesniffer_tpu_torch.kernels import viterbi
+    n0 = viterbi.LAUNCHES["viterbi"]
+    got = viterbi.viterbi_decode_tb_multi(groups)
+    torch.cuda.synchronize()
+    if viterbi.LAUNCHES["viterbi"] != n0 + 1:
+        raise AssertionError(f"{name}: the call launched the Viterbi kernel "
+                             f"{viterbi.LAUNCHES['viterbi'] - n0} times")
+    want = viterbi.viterbi_decode_tb_multi_plain(groups)
+    n_cw, err = 0, 0
+    for x, a, b in zip(groups, got, want):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        err = max(err, int(np.abs(a.astype(np.int16) - b).max()))
+        if not np.array_equal(a, b):
+            raise AssertionError(
+                f"{name}: D={x.shape[2]}: {int((a != b).any(-1).sum())} of "
+                f"{len(a)} codewords of the kernel differ from the plain "
+                "version on the card")
+        n_cw += len(a)
+    note = ""
+    if host_rows:
+        h = viterbi.viterbi_decode_tb_multi_plain(
+            [x[:host_rows].cpu() for x in groups])
+        n_h = sum(int((g[:host_rows].cpu().numpy() != w.numpy()).any(-1)
+                      .sum()) for g, w in zip(got, h))
+        note = (f"; against the plain version on the host, {n_h} of "
+                f"{host_rows * len(groups)} codewords differ")
+    log(f"  {name}: {len(groups)} group(s), D {[x.shape[2] for x in groups]}"
+        f", {n_cw} codewords: kernel bits equal the plain version's on the "
+        f"card{note}")
+    return err
+
+
+def check_viterbi(device, loaded_stream, rng) -> dict:
+    """Phase 2b: the cases of the kernel against the plain version, the
+    real search's cand_fused through both routes, and the times at one
+    search call's shape."""
+    import numpy as np
+    import torch
+    from ltesniffer_tpu_torch.kernels import viterbi
+    from ltesniffer_tpu_torch.sniffer import frontend, pdcch_rx
+    from ltesniffer_tpu_torch.testing import loaded_cell
+    cell = loaded_cell.CELL
+    shapes = search_shapes(cell)
+
+    def llrs(shp, scale=2.0):
+        return [torch.from_numpy((scale * rng.standard_normal((n, 3, d)))
+                                 .astype(np.float32)).to(device)
+                for n, d in shp]
+    main = llrs(shapes)
+    err = viterbi_equal("search call, seeded random LLRs", main,
+                        host_rows=157)
+    err = max(err, viterbi_equal("MIB, D=40 x 12", llrs([(12, 40)]),
+                                 host_rows=12))
+    err = max(err, viterbi_equal(
+        "all-zero LLRs (every state ties)",
+        [torch.zeros((5, 3, d), device=device) for _, d in shapes]))
+    err = max(err, viterbi_equal(
+        "N=1 and N not a multiple of the warps per block",
+        llrs([(1, 31), (7, 44), (1, 67), (5, 40)])))
+    msgs = torch.from_numpy(rng.integers(0, 2, (4096, 67)).astype(np.uint8))
+    coded = viterbi.conv_encode_tb(msgs.to(device))
+    rt = [1.0 - 2.0 * coded.to(torch.float32)]
+    err = max(err, viterbi_equal(
+        "noiseless round trip through the port's encoder", rt))
+    if not np.array_equal(viterbi.viterbi_decode_tb(rt[0]).cpu().numpy(),
+                          msgs.numpy()):
+        raise AssertionError("the round trip did not return the messages")
+    # one chunk of the loaded cell's real search, through both routes
+    n, chunk = cell.sf_len, search_chunk()
+    x = loaded_stream[:chunk * n].reshape(chunk, 1, n)
+    sf = torch.arange(chunk, device=device) % 10
+    fe = frontend.make_frontend(cell).run(x, sf, device)
+    run, _ = pdcch_rx.make_unified_search(cell)
+
+    def search():
+        out = run(fe["grids"], fe["h"], fe["noise_var"], fe["snr_db"], sf,
+                  fe["cfi"] - 1, fe["scalars"])["cand_fused"]
+        return out.cpu().numpy()
+    got = search()
+    kernel = viterbi.viterbi_decode_tb_multi
+    viterbi.viterbi_decode_tb_multi = viterbi.viterbi_decode_tb_multi_plain
+    try:
+        want = search()
+    finally:
+        viterbi.viterbi_decode_tb_multi = kernel
+    if not np.array_equal(got, want):
+        raise AssertionError(f"real search: {int((got != want).sum())} "
+                             "cand_fused words differ between the kernel "
+                             "and the plain step loop")
+    log(f"  the loaded cell's search over {chunk} subframes: "
+        f"cand_fused {got.shape} through the kernel equals it through the "
+        "plain step loop, word for word")
+    # times at the main shape: one search call's six groups
+    t_k1 = time_cuda(lambda: viterbi.viterbi_decode_tb_multi(main), n=20)
+    t_p = time_cuda(lambda: viterbi.viterbi_decode_tb_multi_plain(main), n=3)
+    t_k2 = time_cuda(lambda: viterbi.viterbi_decode_tb_multi(main), n=20)
+    t_bytes = viterbi.bytes_moved(shapes) / HBM_BYTES_PER_S * 1e3
+    t_ops = viterbi.ops(shapes) / F32_OPS_PER_S * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+        (t_ops, "operations")
+    return dict(shapes=shapes, err=err, ms=min(t_k1, t_k2),
+                ms_turns=[t_k1, t_k2],
+                plain_ms=t_p, bound_ms=bound, bound_by=by,
+                ops=viterbi.ops(shapes), bytes=viterbi.bytes_moved(shapes))
+
+
+def reset_counts():
+    from ltesniffer_tpu_torch.kernels import bcjr, turbo_decode, viterbi
+    for m in (bcjr, turbo_decode, viterbi):
+        m.reset_launches()
+
+
+def viterbi_count(path: str) -> int:
+    """The Viterbi kernel's launches since the last reset_counts(); fails
+    if the path launched none or ran the plain step loop on the card."""
+    from ltesniffer_tpu_torch.kernels import viterbi
+    n = viterbi.LAUNCHES["viterbi"]
+    p = viterbi.PLAIN_CUDA["viterbi"]
+    log(f"  {path}: viterbi_tb launches {n}, plain Viterbi step loops on "
+        f"the card {p}")
+    if n <= 0:
+        raise AssertionError(f"{path} launched no Viterbi kernel")
+    if p != 0:
+        raise AssertionError(f"{path} ran the plain Viterbi step loop on "
+                             f"the card {p} times")
+    return n
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4
 # ---------------------------------------------------------------------------
 def run_golden(device, tmp: str):
@@ -480,7 +651,8 @@ def profile_pass(run):
         for ms, n, name in rows[:12]:
             log(f"    {ms:9.2f} ms {n:7d}x  {name[:90]}")
         for ms, n, name in rows:
-            if "turbo_decode_kernel" in name or "bcjr_kernel" in name:
+            if any(k in name for k in ("turbo_decode_kernel",
+                                       "bcjr_kernel", "viterbi_tb_kernel")):
                 log(f"  port kernel {name[:60]}: {ms:.3f} ms over {n} "
                     f"launches ({100 * ms / busy:.2f} % of device time)")
     for line in prof.pretty().splitlines():
@@ -737,17 +909,29 @@ def run_ingest(device, tmp: str) -> dict:
     return out
 
 
+# the CLI's main in a subprocess, with the Viterbi's counts printed after
+CLI_WITH_COUNTS = (
+    "import json, sys\n"
+    "from ltesniffer_tpu_torch import cli\n"
+    "from ltesniffer_tpu_torch.kernels import viterbi\n"
+    "rc = cli.main(sys.argv[1:])\n"
+    "print('viterbi_counts ' + json.dumps([viterbi.LAUNCHES['viterbi'], "
+    "viterbi.PLAIN_CUDA['viterbi']]))\n"
+    "sys.exit(rc)\n")
+
+
 def run_cli(tmp: str) -> tuple:
     """The CLI as a user runs it, in a subprocess on the card: `--sync`
     over the golden stream behind a noise lead, written as an IQ file.
-    Returns (pcap sha256, stats without the clock fields, seconds)."""
+    Returns (pcap sha256, stats without the clock fields, seconds, the
+    process's [Viterbi launches, plain step loops on the card])."""
     from ltesniffer_tpu_torch.io import iq as iq_mod
     from ltesniffer_tpu_torch.testing import stream_cell
     cell, stream, _ = stream_cell.golden_scenario()
     iq_path = os.path.join(tmp, "golden_lead.iq")
     iq_mod.write_iq(iq_path, stream_cell.cli_stream(stream))
     pc, st = os.path.join(tmp, "cli.pcap"), os.path.join(tmp, "cli.json")
-    cmd = [sys.executable, "-m", "ltesniffer_tpu_torch.cli"] + \
+    cmd = [sys.executable, "-c", CLI_WITH_COUNTS] + \
         stream_cell.cli_args(cell, iq_path, pc, st)
     t0 = time.perf_counter()
     r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
@@ -761,7 +945,11 @@ def run_cli(tmp: str) -> tuple:
     stats = json.load(open(st))
     for k in stream_cell.CLI_CLOCK_KEYS:
         stats.pop(k)
-    return hashlib.sha256(open(pc, "rb").read()).hexdigest(), stats, dt
+    counts = [json.loads(line.split(" ", 1)[1])
+              for line in r.stdout.splitlines()
+              if line.startswith("viterbi_counts ")][-1]
+    return (hashlib.sha256(open(pc, "rb").read()).hexdigest(), stats, dt,
+            counts)
 
 
 # ---------------------------------------------------------------------------
@@ -801,10 +989,13 @@ def run_sharded(stream, mesh, single_device) -> dict:
         t0 = time.perf_counter()
         out = fn()                      # the host reads every shard back
         return out, time.perf_counter() - t0
+    reset_counts()                      # the split's own launches only
     got, t_sharded = timed(sharded)
+    n_vit = viterbi_count(f"split over {mesh.size} shards")
     want, t_single = timed(lambda: single(SHARD_BATCH))
     return dict(got=got, want=want, per_shard=single(m), sizes=sizes,
-                st=st, sfs=sfs, t_sharded=t_sharded, t_single=t_single)
+                st=st, sfs=sfs, t_sharded=t_sharded, t_single=t_single,
+                viterbi=n_vit)
 
 
 def resolve_all(out: dict, st: dict, sfs):
@@ -877,11 +1068,11 @@ def run_blocks(device, stream, tmp: str) -> dict:
     os.makedirs(wd)
     sync = torch.cuda.synchronize \
         if torch.device(device).type == "cuda" else None
-    bcjr.reset_launches()
-    turbo_decode.reset_launches()
+    reset_counts()
     blocks, cores, logs, secs = multihost_cell.run_hosts(
         core, multihost, cell, stream, wd, sync=sync, device=device)
     launches = (turbo_decode.LAUNCHES["turbo_decode"], bcjr.LAUNCHES["bcjr"])
+    n_vit = viterbi_count("time blocks")
     merged_recs = multihost.merge_pcap_records(
         [pcap_mod.read_pcap(os.path.join(wd, f"host{b.host}.pcap"))
          for b in blocks], blocks)
@@ -890,7 +1081,7 @@ def run_blocks(device, stream, tmp: str) -> dict:
         core, cell, stream, single_path, sync=sync, device=device)
     single_recs = pcap_mod.read_pcap(single_path)
     return dict(
-        blocks=blocks, secs=secs, launches=launches,
+        blocks=blocks, secs=secs, launches=launches, viterbi=n_vit,
         dcis=multihost_cell.merged_dcis(multihost, logs, blocks),
         results=multihost.merge_accepted([c.results for c in cores], blocks),
         merged_recs=merged_recs, single_recs=single_recs, t_single=t_single,
@@ -941,12 +1132,14 @@ def scale_out(device, card: str, loaded_stream, placed: int,
         meshes = [sharding.make_mesh(["cuda:0"] * 4)]
         if n_cards > 1:
             meshes.append(sharding.make_mesh())
+        n_split = 0
         for mesh in meshes:
             n_on = len(set(mesh.devices))
             where = (f"{mesh.size} shards on {n_on} card"
                      f"{'s' if n_on > 1 else ''}")
             log(f"  mesh {[str(d) for d in mesh.devices]} ({where})")
             r8a = run_sharded(loaded_stream, mesh, "cuda:0")
+            n_split += r8a["viterbi"]
             compare_sharded(r8a)
             log(f"  on {card}: split frontend + search "
                 f"{r8a['t_sharded']:.3f} s "
@@ -957,6 +1150,7 @@ def scale_out(device, card: str, loaded_stream, placed: int,
         if n_cards < 2:
             log("  the mesh of distinct cards did not run: only one card "
                 "is present")
+        vit = {"split": n_split}
     with Phase("8b time blocks: the loaded cell, 512 subframes, 2 blocks, "
                "overlap 200, batch 8"):
         rec_mh = json.load(open(EXPECTED_MULTIHOST))
@@ -1016,9 +1210,16 @@ def scale_out(device, card: str, loaded_stream, placed: int,
                ch["launches"]["bcjr"] for ch in r8c["children"]):
             raise AssertionError("a runner child did not decode through "
                                  "the fused kernel alone")
+        if any(ch["launches"]["viterbi"] <= 0 or
+               ch["launches"]["viterbi_plain_cuda"]
+               for ch in r8c["children"]):
+            raise AssertionError("a runner child did not search through "
+                                 "the Viterbi kernel alone")
+    vit["multihost"] = r8b["viterbi"]
+    vit["runner"] = [ch["launches"]["viterbi"] for ch in r8c["children"]]
     return {"fused": n_fused_mh, "pass": n_pass_mh,
             "runner": [ch["launches"]["turbo_decode"]
-                       for ch in r8c["children"]]}
+                       for ch in r8c["children"]], "viterbi": vit}
 
 
 def main() -> int:
@@ -1031,6 +1232,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from ltesniffer_tpu_torch import native
     from ltesniffer_tpu_torch.kernels import bcjr, nvcc_build, turbo_decode
+    from ltesniffer_tpu_torch.kernels import viterbi
     from ltesniffer_tpu_torch.phy import tables, turbo as turbo_host
     from ltesniffer_tpu_torch.io import sdr
     from ltesniffer_tpu_torch.sniffer import core, pdsch_rx, prof, pusch_rx
@@ -1047,12 +1249,13 @@ def main() -> int:
             log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
                 f"device {kind}")
             # one compiler run for each source, all started together
-            with concurrent.futures.ThreadPoolExecutor(3) as ex:
+            with concurrent.futures.ThreadPoolExecutor(4) as ex:
                 builds = {m.__name__.rsplit(".", 1)[1]: ex.submit(m.build)
-                          for m in (turbo_decode, bcjr, native)}
-            for name in ("turbo_decode", "bcjr"):
+                          for m in (turbo_decode, bcjr, viterbi, native)}
+            for name, mod in (("turbo_decode", "turbo_decode"),
+                              ("bcjr", "bcjr"), ("viterbi_tb", "viterbi")):
                 log(f"  nvcc build of kernels/csrc/{name}.cu: "
-                    f"{builds[name].result():.2f} s")
+                    f"{builds[mod].result():.2f} s")
                 sass = nvcc_build.sass_counts(name)
                 for fn, regs, st, ld in nvcc_build.ptxas_report(name):
                     log(f"  ptxas {name}: {regs} registers, {st} bytes "
@@ -1176,16 +1379,32 @@ def main() -> int:
                 f"({tm['bound_by']}: (4W+32)*L*4 B over 3.35 TB/s); no "
                 "single PyTorch call computes a BCJR pass or a turbo "
                 "decode, so there is no library time")
+        with Phase("2b the Viterbi kernel vs its plain version"):
+            tv = check_viterbi(device, loaded_stream, rng)
+            g = ", ".join(f"{n}x{d}" for n, d in tv["shapes"])
+            log(f"  one search call ({g}; {tv['ops']:.4g} float32 "
+                f"operations, {tv['bytes']:.4g} bytes) on {card}: kernel "
+                f"{tv['ms']:.4f} ms (turns {tv['ms_turns'][0]:.4f}, "
+                f"{tv['ms_turns'][1]:.4f}); plain step loop "
+                f"{tv['plain_ms']:.4f} ms; bound {tv['bound_ms']:.4f} ms "
+                f"({tv['bound_by']}: max(ops / 67 TFLOP/s, bytes / 3.35 "
+                "TB/s)); no PyTorch call computes a Viterbi decode, so "
+                "there is no library time")
         with Phase("3 golden scenario on the card"):
+            reset_counts()
             run_golden(device, tmp)
+            vit = {"golden": viterbi_count("golden scenario")}
         with Phase("4 loaded cell, 20 MHz, 512 subframes, batch 256, "
                    "format-2A load"):
             prof.reset()
-            bcjr.reset_launches()
-            turbo_decode.reset_launches()
+            reset_counts()
             c, acc, dt = run_loaded(device, words, scales, tmp)
             n_fused = turbo_decode.LAUNCHES["turbo_decode"]
             n_pass = bcjr.LAUNCHES["bcjr"]
+            vit["loaded"] = viterbi_count("loaded cell")
+            search = prof.report().get("p2_search", {"s": 0.0, "n": 0})
+            log(f"  p2_search span {search['s']:.4f} s over {search['n']} "
+                "batches (first pass)")
             resolve = prof.report().get("resolve", {"s": 0.0, "n": 0})
             s = c.summary()
             log(f"  summary: subframes {s['subframes']}, dcis {s['dcis']}, "
@@ -1215,15 +1434,17 @@ def main() -> int:
                                      f"kernel {n_pass} times")
             # the first pass pays one-time costs (constant tables, Gold
             # bases, first launches); a second pass reads the warm rate
+            prof.reset()
             _, _, dt2 = run_loaded(device, words, scales, tmp)
+            search = prof.report().get("p2_search", {"s": 0.0, "n": 0})
             log(f"  warm second pass: {loaded_cell.N_SF / dt2:.1f} "
-                f"subframes/s on {card} ({dt2:.2f} s wall)")
+                f"subframes/s on {card} ({dt2:.2f} s wall; p2_search "
+                f"{search['s']:.4f} s)")
         with Phase("4b where the time goes (profiled second pass)"):
             profile_pass(lambda: run_loaded(device, words, scales, tmp)[2])
         with Phase("5 MIMO cell, 20 MHz, 2x2, 64 subframes, batch "
                    f"{MIMO_BATCH}"):
-            bcjr.reset_launches()
-            turbo_decode.reset_launches()
+            reset_counts()
             pdsch_rx.HOST_READS["mimo"] = 0
             prof.reset()
             cm, acc_m, dt_m = run_loaded(device, m_words, m_scales, tmp,
@@ -1231,6 +1452,7 @@ def main() -> int:
                                          cell=mimo_cell.CELL)
             n_fused_m = turbo_decode.LAUNCHES["turbo_decode"]
             n_pass_m = bcjr.LAUNCHES["bcjr"]
+            vit["mimo"] = viterbi_count("MIMO cell")
             reads = pdsch_rx.HOST_READS["mimo"]
             sm = cm.summary()
             n_2tb = sum(1 for a in acc_m if a[2] in ("2", "2A"))
@@ -1274,14 +1496,16 @@ def main() -> int:
                 f"{mspan2['s']:.4f} s over {mspan2['n']} decodes)")
         with Phase("6 uplink: UL golden, UL cell (20 MHz, 1024 subframes, "
                    "8 PUSCH/sf, batch 256), UCI grant"):
+            reset_counts()
             run_ul_golden(device, tmp)
+            vit["ul_golden"] = viterbi_count("UL golden scenario")
             prof.reset()
-            bcjr.reset_launches()
-            turbo_decode.reset_launches()
+            reset_counts()
             pusch_rx.HOST_READS["pusch"] = 0
             cu, dci0, dt_u = run_ul(device, ul_dl, ul_ul, tmp)
             n_fused_u = turbo_decode.LAUNCHES["turbo_decode"]
             n_pass_u = bcjr.LAUNCHES["bcjr"]
+            vit["ul"] = viterbi_count("UL cell")
             n_ok = sum(r.crc_ok for r in cu.ul_results)
             log(f"  UL cell: {len(dci0)} accepted DCI0s, "
                 f"{len(cu.ul_results)} PUSCH results, {n_ok} CRC-ok "
@@ -1301,10 +1525,15 @@ def main() -> int:
             if n_pass_u != 0:
                 raise AssertionError(f"the UL path launched the pass kernel "
                                      f"{n_pass_u} times")
+            prof.reset()
             _, _, dt_u2 = run_ul(device, ul_dl, ul_ul, tmp)
+            search = prof.report().get("p2_search", {"s": 0.0, "n": 0})
             log(f"  warm second pass: {ul_cell.N_SF / dt_u2:.1f} "
-                f"subframes/s on {card} ({dt_u2:.2f} s wall)")
+                f"subframes/s on {card} ({dt_u2:.2f} s wall; p2_search "
+                f"{search['s']:.4f} s)")
+            reset_counts()
             run_uci(device)
+            vit["uci"] = viterbi_count("UCI grant")
         with Phase("6b where the UL cell's time goes (profiled pass)"):
             profile_pass(lambda: run_ul(device, ul_dl, ul_ul, tmp)[2])
         with Phase("7a DL stream (20 MHz, 512 subframes, noise lead, 300 Hz "
@@ -1361,11 +1590,11 @@ def main() -> int:
                 f"re-acquires); one _reacquire (12-subframe np.correlate) "
                 f"{t_reacq:.1f} ms")
             prof.reset()
-            bcjr.reset_launches()
-            turbo_decode.reset_launches()
+            reset_counts()
             cs, acc_s, segs, dt_s = run_dl_stream(device, stream, tmp)
             n_fused_s = turbo_decode.LAUNCHES["turbo_decode"]
             n_pass_s = bcjr.LAUNCHES["bcjr"]
+            vit["stream"] = viterbi_count("DL stream")
             got = stream_counts(cs)
             log(f"  summary: {got}, dcis {cs.summary()['dcis']}, pdsch_ok "
                 f"{cs.summary()['pdsch_ok']}; record {rec_s['summary']}")
@@ -1401,7 +1630,9 @@ def main() -> int:
                 f"run_source's framing alone (segments dropped, not "
                 f"decoded) {dt_f:.2f} s")
         with Phase("7b live mode (live_buffer_sf 20) on the 7a stream"):
+            reset_counts()
             cl, _, _, dt_l = run_dl_stream(device, stream, tmp, live=True)
+            vit["live"] = viterbi_count("live mode")
             sl = cl.summary()
             kept = sl["subframes"] / max(1, sl["subframes"] + sl["sf_skipped"])
             log(f"  live: {sl['subframes']} kept, {sl['sf_skipped']} "
@@ -1421,10 +1652,10 @@ def main() -> int:
                     rec_us["placed"] != us_placed:
                 raise AssertionError("UL stream record does not match the "
                                      "scenario")
-            bcjr.reset_launches()
-            turbo_decode.reset_launches()
+            reset_counts()
             cus, dci0_s, dt_us = run_ul_stream(device, us_dl, us_ul, tmp)
             n_fused_us = turbo_decode.LAUNCHES["turbo_decode"]
+            vit["ul_stream"] = viterbi_count("dual stream")
             log(f"  {len(dci0_s)} DCI0s, {len(cus.ul_results)} results, "
                 f"{sum(r.crc_ok for r in cus.ul_results)} CRC-ok (record "
                 f"{len(rec_us['dci0'])}, {rec_us['n_results']}, "
@@ -1436,7 +1667,10 @@ def main() -> int:
                                      "turbo kernel")
         with Phase("7d ingest options on the golden scenario"):
             rec_i = json.load(open(EXPECTED_INGEST))["pcap_sha256"]
-            for key, sha in run_ingest(device, tmp).items():
+            reset_counts()
+            shas = run_ingest(device, tmp)
+            vit["ingest"] = viterbi_count("ingest options")
+            for key, sha in shas.items():
                 log(f"  {key}: sha256 {sha} "
                     f"({'equal' if sha == rec_i[key] else 'DIFFERS'})")
                 if sha != rec_i[key]:
@@ -1444,13 +1678,20 @@ def main() -> int:
                                          "the JAX package's")
         with Phase("7e the CLI (--sync) in a subprocess"):
             rec_c = json.load(open(EXPECTED_CLI))
-            sha, stats, dt_c = run_cli(tmp)
+            sha, stats, dt_c, cli_vit = run_cli(tmp)
+            log(f"  the CLI's process: viterbi_tb launches {cli_vit[0]}, "
+                f"plain Viterbi step loops on the card {cli_vit[1]}")
+            if cli_vit[0] <= 0 or cli_vit[1] != 0:
+                raise AssertionError("the CLI did not decode through the "
+                                     "Viterbi kernel alone")
+            vit["cli"] = cli_vit[0]
             log(f"  CLI pcap sha256 {sha} ({'equal' if sha == rec_c['pcap_sha256'] else 'DIFFERS'}); "
                 f"{dt_c:.1f} s wall with its start-up; stats {stats}")
             if sha != rec_c["pcap_sha256"] or stats != rec_c["stats"]:
                 raise AssertionError("the CLI's pcap or stats differ from the "
                                      "JAX CLI's")
         mh = scale_out(device, card, loaded_stream, placed, tmp)
+        vit.update(mh["viterbi"])
         t2, t12, t8 = td[2], td[12], td[MIMO_N_ITER]
         line = {"kernels": [{
             "name": "turbo_decode", "route": "cuda",
@@ -1484,7 +1725,15 @@ def main() -> int:
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": None,
             "launches_mimo": n_pass_m, "launches_ul": n_pass_u,
-            "launches_stream": n_pass_s, "launches_multihost": mh["pass"]}]}
+            "launches_stream": n_pass_s, "launches_multihost": mh["pass"]}, {
+            "name": "viterbi_tb", "route": "cuda",
+            "source": "ltesniffer_tpu_torch/kernels/csrc/viterbi_tb.cu",
+            "replaces": VITERBI_REPLACES, "launches": vit["loaded"],
+            "max_abs_err": tv["err"], "ms": tv["ms"], "plain_ms": tv["plain_ms"],
+            "bound_ms": tv["bound_ms"], "bound_by": tv["bound_by"],
+            "library_ms": None,
+            "shape": {"groups": tv["shapes"], "wrap": 32},
+            "launches_per_path": vit}]}
         log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1502,7 +1751,7 @@ def main_scale_out() -> int:
         return 2
     sys.path.insert(0, REPO)
     from ltesniffer_tpu_torch import native
-    from ltesniffer_tpu_torch.kernels import bcjr, turbo_decode
+    from ltesniffer_tpu_torch.kernels import bcjr, turbo_decode, viterbi
     from ltesniffer_tpu_torch.testing import loaded_cell
     kind = torch.cuda.get_device_name(0)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1510,9 +1759,9 @@ def main_scale_out() -> int:
             card = card_line()
             log(card)
             log(f"  {torch.cuda.device_count()} cards")
-            with concurrent.futures.ThreadPoolExecutor(3) as ex:
+            with concurrent.futures.ThreadPoolExecutor(4) as ex:
                 for f in [ex.submit(m.build)
-                          for m in (turbo_decode, bcjr, native)]:
+                          for m in (turbo_decode, bcjr, viterbi, native)]:
                     f.result()
         loaded_stream, placed, _ = loaded_cell.build_stream()
         mh = scale_out("cuda", card, loaded_stream, placed, tmp)

@@ -1,11 +1,24 @@
-"""Batched tail-biting Viterbi decoder (torch ops).
+"""Batched tail-biting Viterbi decoder: the hand-written CUDA kernel and
+its plain torch version.
 
 The blind-search hot loop: the reference decodes each PDCCH candidate
 sequentially through srsRAN's SSE Viterbi
 (`lib/src/phy/falcon_phch/falcon_pdcch.c:110-170` →
 `srsran_pdcch_dci_decode`); here *all* (location × format × subframe)
-candidates decode in one batched trellis pass.  Counterpart of
-`ltesniffer_tpu/kernels/viterbi.py`, with the same structure:
+candidates decode in one batched call.  Counterpart of
+`ltesniffer_tpu/kernels/viterbi.py:56 _acs_scan` and `:82 _traceback`,
+reached through `:98 viterbi_decode_tb` and `:119 viterbi_decode_tb_multi`
+(an XLA `lax.scan`, no `pallas_call`).
+
+`viterbi_decode_tb` / `viterbi_decode_tb_multi` launch the CUDA kernel
+`csrc/viterbi_tb.cu` for CUDA tensors (built with nvcc at first use into
+`ltesniffer_tpu_torch/_build/` by `nvcc_build`; one launch per call, every
+payload size of the call in it) or raise; for CPU tensors they run the
+plain version below.  `LAUNCHES["viterbi"]` counts kernel launches and
+`PLAIN_CUDA["viterbi"]` counts plain step loops run on a CUDA tensor (only
+a comparison with the kernel does that).
+
+The plain version has the JAX package's structure:
 
 * the add-compare-select step is a **butterfly**: with the state
   convention s' = (b << 5) | (s >> 1), the two predecessors of states n and
@@ -19,24 +32,51 @@ candidates decode in one batched trellis pass.  Counterpart of
 * survivor decisions are bit-packed into two 32-bit words per step and
   codeword, held in int64 (uint32 has little CUDA support in torch);
 * candidates of different payload sizes decode in one fused scan
-  (`viterbi_decode_tb_multi`): shorter codewords are zero-LLR-padded at
-  the *front*, so the step count of the whole blind search is max T_i.
+  (`viterbi_decode_tb_multi_plain`): shorter codewords are zero-LLR-padded
+  at the *front*, so the step count of the whole blind search is max T_i.
 
-The scan is a Python loop of torch ops (one set of launches per trellis
-step); a hand-written kernel for it is later work (ROADMAP.md).
+What bounds the kernel on the card: float32 operations (about
+`OPS_PER_STEP` per codeword and trellis step; one search call of 64
+subframes is 6.9 M codeword-steps, 34 us at 67 TFLOP/s against 12 us for
+its 40 MB of LLRs and bits).  What the design does about it: one warp per
+codeword, the 64 states two to a lane, the decisions and the traceback in
+shared memory, the circular wrap as an index and each codeword's own step
+count (the plain version's front pad leaves every metric at +0, so
+skipping it changes no bit); see the note at the top of the source.
 
 LLR sign convention: positive LLR ⇒ bit 0.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+import os
 from typing import List, Sequence
 
 import numpy as np
 import torch
 
 from ltesniffer_tpu_torch.phy import conv
+from . import nvcc_build
 from .cplx import const
+
+SRC = os.path.join(nvcc_build.CSRC, "viterbi_tb.cu")
+
+LAUNCHES = {"viterbi": 0}
+PLAIN_CUDA = {"viterbi": 0}   # plain step loops run on a CUDA tensor
+
+# payload sizes one launch takes: the .cu's kMaxGroups, checked against
+# it when the library loads; the C entry owns every other launch limit
+MAX_GROUPS = 8
+# float32 operations per codeword and trellis step: 4 distinct branch sums
+# of 2 adds, 128 adds, 64 compares, 63 for the maximum, 64 subtracts
+OPS_PER_STEP = 2 * 4 + 128 + 64 + 63 + 64
+
+
+def reset_launches():
+    for d in (LAUNCHES, PLAIN_CUDA):
+        for k in d:
+            d[k] = 0
 
 
 @functools.lru_cache(maxsize=1)
@@ -61,6 +101,8 @@ def _acs_scan(llr_seq):
     bm_mat = const(bm_mat_np, dev, llr_seq.dtype)
     pack_w = const(_PACK_W, dev)
     T, B = llr_seq.shape[0], llr_seq.shape[1]
+    if dev.type == "cuda":
+        PLAIN_CUDA["viterbi"] += 1
     pm = torch.zeros((B, 64), dtype=llr_seq.dtype, device=dev)
     decs = torch.empty((T, B, 2), dtype=torch.int64, device=dev)
     for t in range(T):
@@ -99,8 +141,8 @@ def _extend(llrs, wrap: int):
     return torch.cat([llrs[:, :, D - w:], llrs, llrs[:, :, :w]], dim=-1), w
 
 
-def viterbi_decode_tb(llrs, wrap: int = 32):
-    """Decode tail-biting rate-1/3 K=7 codewords.
+def viterbi_decode_tb_plain(llrs, wrap: int = 32):
+    """Plain version of `viterbi_decode_tb` (the step loop, any device).
 
     Args:
       llrs: (B, 3, D) float32 stream LLRs (positive => bit 0).
@@ -118,8 +160,10 @@ def viterbi_decode_tb(llrs, wrap: int = 32):
     return bits[:, w:w + D]
 
 
-def viterbi_decode_tb_multi(llrs_list: Sequence, wrap: int = 32) -> List:
-    """Decode candidate groups of several payload sizes in ONE fused scan.
+def viterbi_decode_tb_multi_plain(llrs_list: Sequence,
+                                  wrap: int = 32) -> List:
+    """Plain version of `viterbi_decode_tb_multi`: candidate groups of
+    several payload sizes in ONE fused scan (any device).
 
     Args:
       llrs_list: sequence of (B_i, 3, D_i) float32 LLR tensors.
@@ -129,7 +173,7 @@ def viterbi_decode_tb_multi(llrs_list: Sequence, wrap: int = 32) -> List:
       list of (B_i, D_i) uint8 decoded payloads, same order.
     """
     if len(llrs_list) == 1:
-        return [viterbi_decode_tb(llrs_list[0], wrap)]
+        return [viterbi_decode_tb_plain(llrs_list[0], wrap)]
     exts = []
     meta = []
     for llrs in llrs_list:
@@ -155,3 +199,158 @@ def viterbi_decode_tb_multi(llrs_list: Sequence, wrap: int = 32) -> List:
         outs.append(bits[off:off + B, pad + w:pad + w + D])
         off += B
     return outs
+
+
+# ---------------------------------------------------------------------------
+# the kernel: build + bind (kernels/nvcc_build.py: nvcc by hand, plain C
+# ABI, ctypes) and its wrapper
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=1)
+def _library():
+    """Build csrc/viterbi_tb.cu (at first use) and return its entry."""
+    lib = nvcc_build.load("viterbi_tb", SRC)
+    lib.viterbi_tb_max_groups.restype = ctypes.c_int
+    if lib.viterbi_tb_max_groups() != MAX_GROUPS:
+        raise RuntimeError(f"viterbi: the kernel takes "
+                           f"{lib.viterbi_tb_max_groups()} groups a launch, "
+                           f"the wrapper checks for {MAX_GROUPS}")
+    fn = lib.viterbi_tb_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build():
+    """Build and load the kernel library now (else it happens at first
+    launch).  Returns the build time in seconds (0.0 if it was cached)."""
+    _library()
+    return nvcc_build.BUILD_SECONDS.get("viterbi_tb", 0.0)
+
+
+def bytes_moved(shapes) -> int:
+    """Bytes one call must move for groups of (N, D): the (N, 3, D) f32
+    LLRs read once and the (N, D) u8 bits written once."""
+    return sum(n * 3 * d * 4 + n * d for n, d in shapes)
+
+
+def ops(shapes, wrap: int = 32) -> int:
+    """Float32 operations of one call for groups of (N, D): OPS_PER_STEP
+    for each of a codeword's own D + 2 min(wrap, D) steps."""
+    return OPS_PER_STEP * sum(n * (d + 2 * min(wrap, d)) for n, d in shapes)
+
+
+def viterbi_tb_cuda(groups: Sequence, wrap: int = 32) -> List:
+    """Launch the kernel once for every group of the call, on the current
+    stream of the groups' device, with that device made current for the
+    launch (CUDA tensors only).
+
+    groups: (N_i, 3, D_i) float32 contiguous tensors on one CUDA device,
+    at most MAX_GROUPS of them.  Returns [(N_i, D_i) uint8] in order."""
+    if not 1 <= len(groups) <= MAX_GROUPS:
+        raise ValueError(f"viterbi: {len(groups)} groups, the kernel takes "
+                         f"1 to {MAX_GROUPS}")
+    if int(wrap) < 0:
+        raise ValueError(f"viterbi: wrap={wrap} < 0")
+    for x in groups:
+        if x.dtype != torch.float32:
+            raise TypeError(f"viterbi: LLRs must be float32, got {x.dtype}")
+        if x.dim() != 3 or x.shape[1] != 3 or x.shape[2] < 1:
+            raise ValueError(f"viterbi: LLRs have shape {tuple(x.shape)}, "
+                             "expected (N, 3, D) with D >= 1")
+        if not x.is_contiguous():
+            raise ValueError("viterbi: LLRs must be contiguous")
+    dev = groups[0].device
+    if dev.type != "cuda" or any(x.device != dev for x in groups):
+        raise ValueError(f"viterbi_tb_cuda: LLRs on "
+                         f"{sorted({str(x.device) for x in groups})}, not "
+                         "one CUDA device")
+    ds = [int(x.shape[2]) for x in groups]
+    ws = [min(int(wrap), d) for d in ds]
+    outs = [torch.empty((x.shape[0], d), dtype=torch.uint8, device=dev)
+            for x, d in zip(groups, ds)]
+    live = [k for k, x in enumerate(groups) if x.shape[0] > 0]
+    if not live:
+        return outs
+    fn = _library()
+    n = len(live)
+    ints = ctypes.c_int * n
+    ptrs = ctypes.c_void_p * n
+    llr_p = ptrs(*[groups[k].data_ptr() for k in live])
+    bit_p = ptrs(*[outs[k].data_ptr() for k in live])
+    # the launch goes to the current device's context: make it the
+    # tensors' (tensors on cuda:1 while cuda:0 is current)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(llr_p, bit_p, ints(*[int(groups[k].shape[0]) for k in live]),
+                 ints(*[ds[k] for k in live]), ints(*[ws[k] for k in live]),
+                 n, stream)
+    if err != 0:
+        # cudaErrorInvalidValue (1): the entry refused the shapes, e.g. a
+        # D whose slots exceed the block's 48 KB of shared memory
+        raise RuntimeError(f"viterbi kernel launch failed: cudaError {err} "
+                           f"(D {ds}, wrap {wrap})")
+    LAUNCHES["viterbi"] += 1
+    return outs
+
+
+def _check_cpu(x):
+    if x.device.type != "cpu":
+        raise ValueError(f"viterbi: unsupported device {x.device}")
+
+
+def viterbi_decode_tb(llrs, wrap: int = 32):
+    """Decode tail-biting rate-1/3 K=7 codewords: the kernel for a CUDA
+    tensor, the plain version for a CPU tensor.
+
+    Args:
+      llrs: (B, 3, D) float32 stream LLRs (positive => bit 0).
+      wrap: circular training length (clamped to D).
+
+    Returns:
+      bits: (B, D) uint8 decoded payloads.
+    """
+    if llrs.device.type == "cuda":
+        return viterbi_tb_cuda([llrs], wrap)[0]
+    _check_cpu(llrs)
+    return viterbi_decode_tb_plain(llrs, wrap)
+
+
+def viterbi_decode_tb_multi(llrs_list: Sequence, wrap: int = 32) -> List:
+    """Decode candidate groups of several payload sizes in one call: one
+    kernel launch for CUDA tensors, the plain fused scan for CPU tensors.
+
+    Args:
+      llrs_list: sequence of (B_i, 3, D_i) float32 LLR tensors.
+      wrap: circular training length (clamped per size).
+
+    Returns:
+      list of (B_i, D_i) uint8 decoded payloads, same order.
+    """
+    if llrs_list[0].device.type == "cuda":
+        return viterbi_tb_cuda(llrs_list, wrap)
+    for x in llrs_list:
+        _check_cpu(x)
+    return viterbi_decode_tb_multi_plain(llrs_list, wrap)
+
+
+def conv_encode_tb(bits):
+    """Batched tail-biting conv encoder on tensors (for re-encode checks;
+    plain torch, as the JAX package's `conv_encode_tb_jax` is plain XLA).
+
+    bits: (B, D) uint8 -> (B, 3, D) uint8, on bits' device.
+    """
+    t = conv.trellis_tables()
+    dev = bits.device
+    out_tab = const(t["out_bits"], dev)                    # (64, 2, 3)
+    nxt_tab = const(t["next_state"], dev, torch.int64)     # (64, 2)
+    B, D = bits.shape
+    b = bits.to(torch.int64)
+    # initial state = last 6 bits, u_{D-1} at bit 5
+    weights = torch.tensor([1, 2, 4, 8, 16, 32], dtype=torch.int64,
+                           device=dev)
+    state = torch.sum(b[:, D - 6:] * weights, dim=-1)
+    outs = []
+    for k in range(D):
+        outs.append(out_tab[state, b[:, k]])               # (B, 3)
+        state = nxt_tab[state, b[:, k]]
+    return torch.stack(outs, dim=-1)                       # (B, 3, D)

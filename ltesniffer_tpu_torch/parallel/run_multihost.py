@@ -89,13 +89,16 @@ def run_child(args) -> int:
     c = multihost.run_block(factory, blk)
     c.close()
     seconds = time.perf_counter() - t0
-    from ltesniffer_tpu_torch.kernels import bcjr, turbo_decode
+    from ltesniffer_tpu_torch.kernels import bcjr, turbo_decode, viterbi
     with open(os.path.join(args.workdir, f"host{args.child}.json"), "w") as f:
         json.dump({"device": args.child_device, "seconds": seconds,
                    "subframes": len(blk.samples) // cell.sf_len,
                    "launches": {"turbo_decode":
                                 turbo_decode.LAUNCHES["turbo_decode"],
-                                "bcjr": bcjr.LAUNCHES["bcjr"]},
+                                "bcjr": bcjr.LAUNCHES["bcjr"],
+                                "viterbi": viterbi.LAUNCHES["viterbi"],
+                                "viterbi_plain_cuda":
+                                viterbi.PLAIN_CUDA["viterbi"]},
                    "summary": c.summary(),
                    "results": [dict(sfn=r.dci.sfn, sf_idx=r.dci.sf_idx,
                                     rnti=r.dci.rnti, fmt=r.dci.fmt,

@@ -98,10 +98,11 @@ def _f16_bits(x):
 def _candidate_decode_tail(llr, cce_power, size_consts, n_loc: int, B: int,
                            scalars=None) -> dict:
     """Shared tail of the blind search: de-rate-match every payload size
-    (constant-matrix matmul), ONE fused Viterbi scan over all (size x
-    location x subframe) candidates, CRC-XOR RNTIs, and the fused host
-    word matrix (meta | payload words | cce power) whose single host read
-    covers resolve + payloads.
+    (constant-matrix matmul), ONE Viterbi call over all (size x location
+    x subframe) candidates (on the card one kernel launch, handed each
+    size's (B*n_loc, 3, D) LLRs as they are), CRC-XOR RNTIs, and the
+    fused host word matrix (meta | payload words | cce power) whose
+    single host read covers resolve + payloads.
 
     Returns per payload size D: bits_{D} (B, n_loc, D) uint8 and
     rnti_{D} (B, n_loc) int64; cand_meta (B, n_loc, S) int64 [rnti |

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from ltesniffer_tpu_torch.kernels import bcjr, turbo, turbo_decode
+from ltesniffer_tpu_torch.kernels import bcjr, turbo, turbo_decode, viterbi
 
 torch.set_num_threads(1)
 
@@ -289,6 +289,105 @@ def test_run_stream_on_card_equals_cpu(card):
     assert sum(1 for r in out["cuda"][0] if r[3]) >= 15
 
 
+# the loaded cell's blind-search payload sizes (DCI + CRC16), the MIB's
+VITERBI_SEARCH_SIZES = (31, 44, 46, 55, 64, 67)
+
+
+def _viterbi_groups(case, card):
+    """LLR groups of one Viterbi call for `case`, on the card."""
+    rng = np.random.default_rng(31)
+    if case == "search":        # 4 subframes x 157 locations per size
+        shapes = [(628, d) for d in VITERBI_SEARCH_SIZES]
+    elif case == "odd":         # N = 1, and N not a multiple of the warps
+        shapes = [(1, 40), (7, 31), (1, 67)]
+    else:                       # the MIB: 12 codewords of D = 40
+        shapes = [(12, 40)]
+    out = []
+    for n, d in shapes:
+        x = 2.0 * rng.standard_normal((n, 3, d))
+        if case == "zeros":
+            x[:] = 0.0
+        elif case == "constant":
+            x[:] = -0.75
+        out.append(torch.from_numpy(x.astype(np.float32)).to(card))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["search", "mib", "odd", "zeros",
+                                  "constant"])
+def test_viterbi_kernel_equals_plain(card, case):
+    """The Viterbi kernel against its plain version on the same card
+    tensors: equal bits at the search's six sizes in one call, at the
+    MIB's, for odd counts and on ties; one launch per call."""
+    groups = _viterbi_groups(case, card)
+    want = viterbi.viterbi_decode_tb_multi_plain(groups)
+    n0 = viterbi.LAUNCHES["viterbi"]
+    got = viterbi.viterbi_decode_tb_multi(groups)
+    torch.cuda.synchronize()
+    assert viterbi.LAUNCHES["viterbi"] == n0 + 1
+    for a, b in zip(got, want):
+        assert a.device == groups[0].device
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    one = viterbi.viterbi_decode_tb(groups[0])
+    assert viterbi.LAUNCHES["viterbi"] == n0 + 2
+    np.testing.assert_array_equal(one.cpu().numpy(), want[0].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_viterbi_kernel_noiseless_roundtrip(card):
+    """Random messages through the port's encoder decode to themselves."""
+    rng = np.random.default_rng(4)
+    msgs = torch.from_numpy(rng.integers(0, 2, (256, 55)).astype(np.uint8))
+    coded = viterbi.conv_encode_tb(msgs.to(card))
+    bits = viterbi.viterbi_decode_tb(1.0 - 2.0 * coded.to(torch.float32))
+    np.testing.assert_array_equal(bits.cpu().numpy(), msgs.numpy())
+
+
+@pytest.mark.cuda
+def test_viterbi_kernel_refuses_oversize_codewords(card):
+    """The C entry owns the shared-memory limit: a D whose slots exceed a
+    block's 48 KB is refused with cudaErrorInvalidValue, nothing launched."""
+    n0 = viterbi.LAUNCHES["viterbi"]
+    with pytest.raises(RuntimeError, match="cudaError 1 "):
+        viterbi.viterbi_tb_cuda([torch.zeros((4, 3, 1024), device=card)])
+    assert viterbi.LAUNCHES["viterbi"] == n0
+
+
+@pytest.mark.cuda
+def test_unified_search_through_kernel_equals_plain(card, monkeypatch):
+    """`make_unified_search` on the card: `cand_fused` through the Viterbi
+    kernel equals `cand_fused` through the plain step loop on the same
+    grids, word for word."""
+    from ltesniffer_tpu_torch.mac_rrc import mac
+    from ltesniffer_tpu_torch.phy.params import CellConfig
+    from ltesniffer_tpu_torch.sniffer import frontend, pdcch_rx
+    from ltesniffer_tpu_torch.testing import scenario
+    cell = CellConfig(n_id_cell=55, n_prb=50, nof_ports=2, nof_rx_ant=1)
+    sb = scenario.ScenarioBuilder(cell, seed=3, noise=0.04)
+    pdu = mac.build_mac_pdu([mac.MacSubPdu(lcid=3, payload=b"search")])
+    for j in range(10):
+        sb.add_subframe(j, [scenario.DlTx(rnti=0x4000 + j, mac_pdu=pdu,
+                                          n_prb=6, prb_start=10)])
+    x = sb.stream().reshape(10, 1, cell.sf_len)
+    sf = torch.arange(10, dtype=torch.int64, device=card)
+    fe = frontend.make_frontend(cell).run(x, sf, card)
+    run, _ = pdcch_rx.make_unified_search(cell)
+
+    def search():
+        return run(fe["grids"], fe["h"], fe["noise_var"], fe["snr_db"], sf,
+                   fe["cfi"] - 1, fe["scalars"])["cand_fused"].cpu().numpy()
+    n0 = viterbi.LAUNCHES["viterbi"]
+    got = search()
+    assert viterbi.LAUNCHES["viterbi"] == n0 + 1
+    p0 = viterbi.PLAIN_CUDA["viterbi"]
+    monkeypatch.setattr(viterbi, "viterbi_decode_tb_multi",
+                        viterbi.viterbi_decode_tb_multi_plain)
+    want = search()
+    assert viterbi.PLAIN_CUDA["viterbi"] == p0 + 1
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.fixture
 def two_cards():
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
@@ -332,3 +431,19 @@ def test_bcjr_pass_on_second_card(two_cards):
     for a, b in zip(got, bcjr.bcjr_plain(*ins)):
         assert a.device == second
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_viterbi_on_second_card(two_cards):
+    """The Viterbi kernel on cuda:1 while cuda:0 is current equals the
+    plain version there."""
+    first, second = two_cards
+    groups = _viterbi_groups("search", second)
+    want = viterbi.viterbi_decode_tb_multi_plain(groups)
+    with torch.cuda.device(first):
+        got = viterbi.viterbi_decode_tb_multi(groups)
+        torch.cuda.synchronize(second)
+        assert torch.cuda.current_device() == first.index
+    for a, b in zip(got, want):
+        assert a.device == second
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
