@@ -36,11 +36,18 @@ exit) if any phase fails:
    same card tensors, bits equal word for word: seeded random LLRs at the
    six payload sizes of one loaded-cell search call (64 subframes x 157
    locations each) in one call, the MIB (D = 40 x 12), all-zero LLRs,
-   N = 1 and N not a multiple of the warps per block, the noiseless round
-   trip of random messages through the port's encoder, and the loaded
-   cell's real search over 64 subframes (`make_unified_search`: cand_fused
-   through the kernel equals cand_fused through the plain step loop).
-   Times of one search call's six groups: kernel, plain, bound.
+   N = 1 and N not a multiple of the warps per block, groups whose N is
+   not a multiple of 32 in one call (a warp holds codewords of one size
+   only), the largest D the kernel's shared-memory layout takes (and one
+   past it, which must be refused and launch nothing), the noiseless
+   round trip of random messages through the port's encoder, and the
+   loaded cell's real search over 64 subframes (`make_unified_search`:
+   cand_fused through the kernel equals cand_fused through the plain step
+   loop).  Times of one search call's six groups and of the MIB's call:
+   kernel, plain, bound (and the bound at the add/compare issue rate),
+   with the launch's shared memory per block and warps per SM; the
+   search call's time beside the earlier one-warp-per-codeword design's
+   and required below it; ptxas registers and spills (none allowed).
    From phase 3 on, every path (each of 3-8, the CLI's and the runner's
    processes included) must launch the Viterbi kernel and run the plain
    step loop on the card no time.
@@ -165,6 +172,12 @@ MIMO_BATCH = 32                  # as the expected record was made
 MIMO_N_ITER = 8                  # decode_grant_mimo's turbo iterations
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside tensor cores
+# 67 TFLOP/s counts an FMA as two operations: adds and compares alone
+# issue at most 128 a cycle on each of the 132 SMs at 1.98 GHz
+F32_ADD_OPS_PER_S = 128 * 132 * 1.98e9
+# the Viterbi kernel's earlier design (one warp per codeword) at one
+# search call's shape: NVIDIA H100 80GB HBM3, 700 W (PERF.md, section 6)
+VITERBI_WARP_DESIGN_MS = 0.6531
 BCJR_TOL = 1e-4                  # |kernel - twin| <= 1e-4 * max(1, |twin|)
 CRC_DIFF_MAX = 0.005             # share of results whose CRC-ok may differ
 BCJR_REPLACES = "ltesniffer_tpu/kernels/turbo_pallas.py:125"
@@ -196,6 +209,16 @@ class Phase:
         log(f"== {self.name}: {'ok' if typ is None else 'FAILED'} "
             f"({dt:.2f} s)")
         return False
+
+
+def no_card() -> bool:
+    """True, with a message, where torch sees no CUDA device."""
+    import torch
+    if torch.cuda.is_available():
+        return False
+    print("chip_smoke: no CUDA device; this script runs on the card only",
+          file=sys.stderr)
+    return True
 
 
 def card_line() -> str:
@@ -502,6 +525,25 @@ def check_viterbi(device, loaded_stream, rng) -> dict:
     err = max(err, viterbi_equal(
         "N=1 and N not a multiple of the warps per block",
         llrs([(1, 31), (7, 44), (1, 67), (5, 40)])))
+    err = max(err, viterbi_equal(
+        "groups whose N is not a multiple of 32 (no warp straddles sizes)",
+        llrs([(33, 31), (1, 67), (63, 44)])))
+    d_max = viterbi.max_d(32)
+    err = max(err, viterbi_equal(f"the largest D the layout takes, "
+                                 f"{d_max}", llrs([(40, d_max)])))
+    n0 = viterbi.LAUNCHES["viterbi"]
+    try:
+        viterbi.viterbi_decode_tb_multi(llrs([(4, d_max + 1)]))
+    except RuntimeError as e:
+        if "cudaError 1 " not in str(e):
+            raise
+    else:
+        raise AssertionError(f"D={d_max + 1} past the layout's limit "
+                             "launched")
+    if viterbi.LAUNCHES["viterbi"] != n0:
+        raise AssertionError("a refused call counted a launch")
+    log(f"  D={d_max + 1}, one past the limit: refused (cudaError 1), "
+        "nothing launched")
     msgs = torch.from_numpy(rng.integers(0, 2, (4096, 67)).astype(np.uint8))
     coded = viterbi.conv_encode_tb(msgs.to(device))
     rt = [1.0 - 2.0 * coded.to(torch.float32)]
@@ -535,18 +577,65 @@ def check_viterbi(device, loaded_stream, rng) -> dict:
     log(f"  the loaded cell's search over {chunk} subframes: "
         f"cand_fused {got.shape} through the kernel equals it through the "
         "plain step loop, word for word")
-    # times at the main shape: one search call's six groups
-    t_k1 = time_cuda(lambda: viterbi.viterbi_decode_tb_multi(main), n=20)
-    t_p = time_cuda(lambda: viterbi.viterbi_decode_tb_multi_plain(main), n=3)
-    t_k2 = time_cuda(lambda: viterbi.viterbi_decode_tb_multi(main), n=20)
+    # times at the main shape (one search call's six groups) and at the
+    # MIB's, in turns
+    out = time_viterbi(main, shapes)
+    out.update(shapes=shapes, err=err, d_max=d_max,
+               mib=time_viterbi(llrs([(12, 40)]), [(12, 40)]))
+    return out
+
+
+def time_viterbi(groups, shapes) -> dict:
+    """Kernel (twice, in turns around the plain version), plain step loop
+    and bounds of one call, with its launch's occupancy."""
+    from ltesniffer_tpu_torch.kernels import viterbi
+    t_k1 = time_cuda(lambda: viterbi.viterbi_decode_tb_multi(groups), n=20)
+    t_p = time_cuda(lambda: viterbi.viterbi_decode_tb_multi_plain(groups),
+                    n=3)
+    t_k2 = time_cuda(lambda: viterbi.viterbi_decode_tb_multi(groups), n=20)
     t_bytes = viterbi.bytes_moved(shapes) / HBM_BYTES_PER_S * 1e3
     t_ops = viterbi.ops(shapes) / F32_OPS_PER_S * 1e3
     bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
         (t_ops, "operations")
-    return dict(shapes=shapes, err=err, ms=min(t_k1, t_k2),
-                ms_turns=[t_k1, t_k2],
-                plain_ms=t_p, bound_ms=bound, bound_by=by,
-                ops=viterbi.ops(shapes), bytes=viterbi.bytes_moved(shapes))
+    return dict(ms=min(t_k1, t_k2), ms_turns=[t_k1, t_k2], plain_ms=t_p,
+                bound_ms=bound, bound_by=by,
+                add_bound_ms=viterbi.ops(shapes) / F32_ADD_OPS_PER_S * 1e3,
+                ops=viterbi.ops(shapes), bytes=viterbi.bytes_moved(shapes),
+                **viterbi.occupancy(shapes))
+
+
+def report_viterbi(tv: dict, card: str):
+    """Logs phase 2b's times, bounds, occupancy and ptxas report, and
+    fails on spills or on a search call not below the earlier design's
+    time.  Adds `registers` and `spill_bytes` to tv."""
+    from ltesniffer_tpu_torch.kernels import nvcc_build
+    (_, regs, st, ld), = nvcc_build.ptxas_report("viterbi_tb")
+    tv.update(registers=regs, spill_bytes=st + ld)
+    for what, t, shp in (("one search call", tv, tv["shapes"]),
+                         ("the MIB", tv["mib"], [(12, 40)])):
+        g = ", ".join(f"{n}x{d}" for n, d in shp)
+        log(f"  {what} ({g}; {t['ops']:.4g} float32 operations, "
+            f"{t['bytes']:.4g} bytes) on {card}: kernel {t['ms']:.4f} ms "
+            f"(turns {t['ms_turns'][0]:.4f}, {t['ms_turns'][1]:.4f}); plain "
+            f"step loop {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms"
+            f" ({t['bound_by']}: max(ops / 67 TFLOP/s, bytes / 3.35 TB/s)),"
+            f" {100 * t['bound_ms'] / t['ms']:.1f} % of it; adds and "
+            f"compares at 33.5 T/s {t['add_bound_ms']:.4f} ms, "
+            f"{100 * t['add_bound_ms'] / t['ms']:.1f} % of it; "
+            f"{t['smem_per_block']} bytes of shared memory a block of 32 "
+            f"codewords, {t['warps_per_sm']} warps an SM")
+    log(f"  one search call: {tv['ms']:.4f} ms against "
+        f"{VITERBI_WARP_DESIGN_MS} ms for the earlier design (one warp per "
+        f"codeword, H100 80GB HBM3 at 700 W), "
+        f"{VITERBI_WARP_DESIGN_MS / tv['ms']:.2f}x; ptxas {regs} registers, "
+        f"{st} / {ld} bytes spill stores / loads; no PyTorch call computes "
+        "a Viterbi decode, so there is no library time")
+    if st or ld:
+        raise AssertionError("the Viterbi kernel spills registers")
+    if tv["ms"] >= VITERBI_WARP_DESIGN_MS:
+        raise AssertionError(
+            f"the Viterbi kernel takes {tv['ms']:.4f} ms a search call, not "
+            f"below the earlier design's {VITERBI_WARP_DESIGN_MS} ms")
 
 
 def reset_counts():
@@ -1225,9 +1314,7 @@ def scale_out(device, card: str, loaded_stream, placed: int,
 def main() -> int:
     import numpy as np
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the card "
-              "only", file=sys.stderr)
+    if no_card():
         return 2
     sys.path.insert(0, REPO)
     from ltesniffer_tpu_torch import native
@@ -1381,15 +1468,7 @@ def main() -> int:
                 "decode, so there is no library time")
         with Phase("2b the Viterbi kernel vs its plain version"):
             tv = check_viterbi(device, loaded_stream, rng)
-            g = ", ".join(f"{n}x{d}" for n, d in tv["shapes"])
-            log(f"  one search call ({g}; {tv['ops']:.4g} float32 "
-                f"operations, {tv['bytes']:.4g} bytes) on {card}: kernel "
-                f"{tv['ms']:.4f} ms (turns {tv['ms_turns'][0]:.4f}, "
-                f"{tv['ms_turns'][1]:.4f}); plain step loop "
-                f"{tv['plain_ms']:.4f} ms; bound {tv['bound_ms']:.4f} ms "
-                f"({tv['bound_by']}: max(ops / 67 TFLOP/s, bytes / 3.35 "
-                "TB/s)); no PyTorch call computes a Viterbi decode, so "
-                "there is no library time")
+            report_viterbi(tv, card)
         with Phase("3 golden scenario on the card"):
             reset_counts()
             run_golden(device, tmp)
@@ -1733,6 +1812,13 @@ def main() -> int:
             "bound_ms": tv["bound_ms"], "bound_by": tv["bound_by"],
             "library_ms": None,
             "shape": {"groups": tv["shapes"], "wrap": 32},
+            "registers": tv["registers"], "spill_bytes": tv["spill_bytes"],
+            "smem_per_block": tv["smem_per_block"],
+            "warps_per_sm": tv["warps_per_sm"], "max_d": tv["d_max"],
+            "mib": {"shape": {"groups": [(12, 40)], "wrap": 32},
+                    **{k: tv["mib"][k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "smem_per_block", "warps_per_sm")}},
             "launches_per_path": vit}]}
         log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
@@ -1745,9 +1831,7 @@ def main_scale_out() -> int:
     """`chip_smoke.py --scale-out`: phase 1's build and phase 8 alone, for
     a machine with several cards (the no-argument run needs one)."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the card "
-              "only", file=sys.stderr)
+    if no_card():
         return 2
     sys.path.insert(0, REPO)
     from ltesniffer_tpu_torch import native

@@ -38,11 +38,15 @@ The plain version has the JAX package's structure:
 What bounds the kernel on the card: float32 operations (about
 `OPS_PER_STEP` per codeword and trellis step; one search call of 64
 subframes is 6.9 M codeword-steps, 34 us at 67 TFLOP/s against 12 us for
-its 40 MB of LLRs and bits).  What the design does about it: one warp per
-codeword, the 64 states two to a lane, the decisions and the traceback in
-shared memory, the circular wrap as an index and each codeword's own step
+its 40 MB of LLRs and bits).  What the design does about it: one codeword
+per thread with its 64 path metrics in registers (no warp exchange in
+the recurrence), the LLRs staged once per warp in shared memory, the
+decisions of the traceback's steps in shared memory and a traceback in
+every lane, the circular wrap as an index and each codeword's own step
 count (the plain version's front pad leaves every metric at +0, so
 skipping it changes no bit); see the note at the top of the source.
+The payload sizes a launch takes are the source's (`max_d`); `occupancy`
+reports a launch's warps per SM and shared memory per block.
 
 LLR sign convention: positive LLR ⇒ bit 0.
 """
@@ -214,10 +218,15 @@ def _library():
         raise RuntimeError(f"viterbi: the kernel takes "
                            f"{lib.viterbi_tb_max_groups()} groups a launch, "
                            f"the wrapper checks for {MAX_GROUPS}")
-    fn = lib.viterbi_tb_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.viterbi_tb_launch.argtypes = [ctypes.c_void_p] * 5 + \
+        [ctypes.c_int, ctypes.c_void_p]
+    lib.viterbi_tb_launch.restype = ctypes.c_int
+    lib.viterbi_tb_max_d.argtypes = [ctypes.c_int]
+    lib.viterbi_tb_max_d.restype = ctypes.c_int
+    lib.viterbi_tb_occupancy.argtypes = [ctypes.c_void_p] * 2 + \
+        [ctypes.c_int] + [ctypes.c_void_p] * 2
+    lib.viterbi_tb_occupancy.restype = ctypes.c_int
+    return lib
 
 
 def build():
@@ -225,6 +234,28 @@ def build():
     launch).  Returns the build time in seconds (0.0 if it was cached)."""
     _library()
     return nvcc_build.BUILD_SECONDS.get("viterbi_tb", 0.0)
+
+
+def max_d(wrap: int = 32) -> int:
+    """The largest payload size D one launch takes with `wrap` (the
+    source's shared-memory limit; builds the library)."""
+    return int(_library().viterbi_tb_max_d(int(wrap)))
+
+
+def occupancy(shapes, wrap: int = 32) -> dict:
+    """Warps per SM and shared-memory bytes per block of one launch for
+    groups of (N, D), on the current CUDA device."""
+    ds = [int(d) for _, d in shapes]
+    n = len(ds)
+    ints = ctypes.c_int * n
+    warps, smem = ctypes.c_int(), ctypes.c_int()
+    err = _library().viterbi_tb_occupancy(
+        ints(*ds), ints(*[min(int(wrap), d) for d in ds]), n,
+        ctypes.byref(warps), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"viterbi occupancy query failed: cudaError "
+                           f"{err} (D {ds}, wrap {wrap})")
+    return dict(warps_per_sm=warps.value, smem_per_block=smem.value)
 
 
 def bytes_moved(shapes) -> int:
@@ -271,7 +302,7 @@ def viterbi_tb_cuda(groups: Sequence, wrap: int = 32) -> List:
     live = [k for k, x in enumerate(groups) if x.shape[0] > 0]
     if not live:
         return outs
-    fn = _library()
+    fn = _library().viterbi_tb_launch
     n = len(live)
     ints = ctypes.c_int * n
     ptrs = ctypes.c_void_p * n
@@ -286,7 +317,7 @@ def viterbi_tb_cuda(groups: Sequence, wrap: int = 32) -> List:
                  n, stream)
     if err != 0:
         # cudaErrorInvalidValue (1): the entry refused the shapes, e.g. a
-        # D whose slots exceed the block's 48 KB of shared memory
+        # D above max_d(wrap), whose slot exceeds a block's shared memory
         raise RuntimeError(f"viterbi kernel launch failed: cudaError {err} "
                            f"(D {ds}, wrap {wrap})")
     LAUNCHES["viterbi"] += 1

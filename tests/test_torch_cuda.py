@@ -300,6 +300,8 @@ def _viterbi_groups(case, card):
         shapes = [(628, d) for d in VITERBI_SEARCH_SIZES]
     elif case == "odd":         # N = 1, and N not a multiple of the warps
         shapes = [(1, 40), (7, 31), (1, 67)]
+    elif case == "straddle":    # N not a multiple of 32: partial warps
+        shapes = [(33, 31), (1, 67), (63, 44)]
     else:                       # the MIB: 12 codewords of D = 40
         shapes = [(12, 40)]
     out = []
@@ -314,12 +316,13 @@ def _viterbi_groups(case, card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["search", "mib", "odd", "zeros",
-                                  "constant"])
+@pytest.mark.parametrize("case", ["search", "mib", "odd", "straddle",
+                                  "zeros", "constant"])
 def test_viterbi_kernel_equals_plain(card, case):
     """The Viterbi kernel against its plain version on the same card
     tensors: equal bits at the search's six sizes in one call, at the
-    MIB's, for odd counts and on ties; one launch per call."""
+    MIB's, for odd counts, for groups that end in partial warps and on
+    ties; one launch per call."""
     groups = _viterbi_groups(case, card)
     want = viterbi.viterbi_decode_tb_multi_plain(groups)
     n0 = viterbi.LAUNCHES["viterbi"]
@@ -346,11 +349,20 @@ def test_viterbi_kernel_noiseless_roundtrip(card):
 
 @pytest.mark.cuda
 def test_viterbi_kernel_refuses_oversize_codewords(card):
-    """The C entry owns the shared-memory limit: a D whose slots exceed a
-    block's 48 KB is refused with cudaErrorInvalidValue, nothing launched."""
+    """The C entry owns the shared-memory limit: the largest D its layout
+    takes decodes as the plain version does; one past it, or far past it,
+    is refused with cudaErrorInvalidValue, nothing launched."""
+    d_max = viterbi.max_d(32)
+    assert 67 < d_max < 1024
+    x = torch.from_numpy((2.0 * np.random.default_rng(9).standard_normal(
+        (5, 3, d_max))).astype(np.float32)).to(card)
+    np.testing.assert_array_equal(
+        viterbi.viterbi_decode_tb(x).cpu().numpy(),
+        viterbi.viterbi_decode_tb_plain(x).cpu().numpy())
     n0 = viterbi.LAUNCHES["viterbi"]
-    with pytest.raises(RuntimeError, match="cudaError 1 "):
-        viterbi.viterbi_tb_cuda([torch.zeros((4, 3, 1024), device=card)])
+    for d in (d_max + 1, 1024):
+        with pytest.raises(RuntimeError, match="cudaError 1 "):
+            viterbi.viterbi_tb_cuda([torch.zeros((4, 3, d), device=card)])
     assert viterbi.LAUNCHES["viterbi"] == n0
 
 
@@ -436,8 +448,10 @@ def test_bcjr_pass_on_second_card(two_cards):
 @pytest.mark.cuda
 def test_viterbi_on_second_card(two_cards):
     """The Viterbi kernel on cuda:1 while cuda:0 is current equals the
-    plain version there."""
+    plain version there, after a launch on cuda:0 (the dynamic shared-
+    memory attribute the search's sizes need is set per device)."""
     first, second = two_cards
+    viterbi.viterbi_decode_tb_multi(_viterbi_groups("search", first))
     groups = _viterbi_groups("search", second)
     want = viterbi.viterbi_decode_tb_multi_plain(groups)
     with torch.cuda.device(first):

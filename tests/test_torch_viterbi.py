@@ -4,8 +4,9 @@ the CUDA kernel `csrc/viterbi_tb.cu` relies on, held on the plain version:
 bits equal to the JAX package's at the blind search's payload sizes and on
 ties, and front-pad invariance (a fused multi-size scan decodes each size
 as its own call would, which lets the kernel run each codeword's own step
-count).  The kernel itself is held against the plain version on the card
-(`tests/test_torch_cuda.py`, `chip_smoke.py` phase 2b)."""
+count), and a numpy model of the kernel's per-thread loop held equal to
+the plain version.  The kernel itself is held against the plain version
+on the card (`tests/test_torch_cuda.py`, `chip_smoke.py` phase 2b)."""
 import numpy as np
 import pytest
 import torch
@@ -180,3 +181,108 @@ def test_bound_counts():
     assert steps == 10048 * (93 + 108 + 110 + 119 + 128 + 131)
     assert viterbi.ops(shapes) == viterbi.OPS_PER_STEP * steps
     assert viterbi.bytes_moved(shapes) == 13 * 10048 * sum(SEARCH_SIZES)
+
+
+# ---------------------------------------------------------------------------
+# a numpy model of one thread's loop in csrc/viterbi_tb.cu (one codeword per
+# thread), vectorised over the codewords of a group
+# ---------------------------------------------------------------------------
+def _kernel_branches():
+    """For each (input b, pair m, j) of the butterfly: the index of the
+    branch sum among base = [(l0+l1)+l2, (l0+l1)-l2, (l0-l1)+l2,
+    (l0-l1)-l2] and whether the branch is its negation (the kernel then
+    subtracts it), from the register (b << 6) | (2m + j)."""
+    reg = (np.arange(2)[:, None, None] << 6) | \
+        (2 * np.arange(32)[None, :, None] + np.arange(2)[None, None, :])
+    o0, o1, o2 = (np.vectorize(lambda r, g=g: bin(r & g).count("1") & 1)(reg)
+                  for g in (0o133, 0o171, 0o165))
+    return ((o1 ^ o0) << 1) | (o2 ^ o0), o0.astype(bool)
+
+
+def _kernel_model(llr, wrap=32):
+    """bits (N, D) of the kernel's loop for llr (N, 3, D) float32: the
+    codeword's own T = D + 2w steps over columns (s - w) mod D, 4 branch
+    sums and their negations, the step's maximum from the entering
+    metrics (max over branch sums i of Q_i + |base_i|), the select as a
+    maximum and the decision as the sign bit of cand0 - cand1, decisions
+    packed into two u32 words and kept only from step w, the first zero
+    metric as the start state, the traceback over the kept decisions."""
+    N, _, D = llr.shape
+    w = min(wrap, D)
+    idx, neg = _kernel_branches()                      # (2, 32, 2)
+    groups = [idx[0, :, 0] == i for i in range(4)]     # butterflies on sum i
+    shift = np.arange(32, dtype=np.uint64)
+    pm = np.zeros((N, 64), np.float32)
+    dec = np.zeros((D + w, N, 2), np.uint32)
+    for s in range(D + 2 * w):
+        c = (s - w) % D
+        l0, l1, l2 = llr[:, 0, c], llr[:, 1, c], llr[:, 2, c]
+        a, b = l0 + l1, l0 - l1
+        base = np.stack([a + l2, a - l2, b + l2, b - l2], axis=1)
+        pair = pm.reshape(N, 32, 2).max(-1)            # per butterfly
+        mx = np.stack([pair[:, g].max(-1) + np.abs(base[:, i])
+                       for i, g in enumerate(groups)], axis=1).max(-1)
+        bv = base[:, idx]                              # (N, 2, 32, 2)
+        p = pm.reshape(N, 1, 32, 2)
+        cand = np.where(neg, p - bv, p + bv)
+        e = np.signbit(cand[..., 0] - cand[..., 1])    # (N, 2, 32)
+        nw = np.maximum(cand[..., 0], cand[..., 1]).reshape(N, 64)
+        pm = nw - mx[:, None]
+        if s >= w:
+            dec[s - w] = (e.astype(np.uint64) << shift).sum(-1) \
+                .astype(np.uint32)
+    st = np.argmax(pm == 0, axis=1)                    # first zero
+    bits = np.zeros((N, D), np.uint8)
+    for t in range(D + 2 * w - 1, w - 1, -1):
+        if t < w + D:
+            bits[:, t - w] = st >> 5
+        word = np.where(st >= 32, dec[t - w, :, 1], dec[t - w, :, 0])
+        st = ((st & 31) << 1) | ((word >> (st & 31)) & 1)
+    return bits
+
+
+def _model_vs_plain(groups):
+    want = viterbi.viterbi_decode_tb_multi_plain(
+        [torch.from_numpy(g) for g in groups])
+    for g, b in zip(groups, want):
+        np.testing.assert_array_equal(_kernel_model(g), b.numpy())
+
+
+@pytest.mark.parametrize("D", SEARCH_SIZES + (D_MIB,))
+def test_kernel_model_equals_plain(D):
+    """The kernel's per-thread loop, modelled in numpy float32, equals the
+    plain fused scan bit for bit at each search size and the MIB's, on
+    noisy codewords and pure noise, in a call with a second size."""
+    rng = np.random.default_rng(500 + D)
+    msgs = rng.integers(0, 2, size=(24, D)).astype(np.uint8)
+    coded = viterbi.conv_encode_tb(torch.from_numpy(msgs)).numpy()
+    noisy = (1.0 - 2.0 * coded.astype(np.float32)) + \
+        1.2 * rng.standard_normal(coded.shape).astype(np.float32)
+    llrs = np.concatenate([noisy, 2.0 * rng.standard_normal(
+        (40, 3, D)).astype(np.float32)]).astype(np.float32)
+    other = (2.0 * rng.standard_normal((9, 3, 67 if D != 67 else 31))) \
+        .astype(np.float32)
+    _model_vs_plain([llrs, other])
+
+
+@pytest.mark.parametrize("fill", [0.0, 1.0, -0.75])
+def test_kernel_model_on_ties(fill):
+    """Constant LLRs (every state or every path ties) at the search sizes,
+    the MIB's and D = 5 (a wrap too short to hide the start state) in one
+    call: the model's strict compare and first zero metric give the plain
+    version's bits."""
+    _model_vs_plain([np.full((3, 3, d), fill, np.float32)
+                     for d in SEARCH_SIZES + (D_MIB, 5)])
+
+
+@pytest.mark.parametrize("name", ["warps2", "warps4", "unsorted", "l1"])
+def test_variants_patch_the_source(name):
+    """Each variant of `kernels/viterbi_variants.py` still finds what it
+    changes in the kernel's source (it raises where an edit moved it), and
+    changes nothing else: the kernel's launch entry stays."""
+    from ltesniffer_tpu_torch.kernels import viterbi_variants
+    src = open(viterbi.SRC).read()
+    out = viterbi_variants.VARIANTS[name](src)
+    assert out != src
+    assert 'extern "C" int viterbi_tb_launch(' in out
+    assert viterbi_variants.VARIANTS["kernel"](src) == src
