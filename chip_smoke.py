@@ -8,13 +8,14 @@ Drives `ltesniffer_tpu_torch` — the PyTorch port of the JAX package
 `ltesniffer_tpu` — through its main path on the card and fails (non-zero
 exit) if any phase fails:
 
-1. card and build: the card's name and power limit; build the three
+1. card and build: the card's name and power limit; build the four
    hand-written CUDA kernels with nvcc and the native resolver with g++,
-   all four side by side: the fused whole-decode turbo kernel
+   all five side by side: the fused whole-decode turbo kernel
    (kernels/csrc/turbo_decode.cu, the main path's decoder), the per-pass
    BCJR kernel (kernels/csrc/bcjr.cu, the earlier design), the
    tail-biting Viterbi of the blind search and the MIB
-   (kernels/csrc/viterbi_tb.cu) and the host resolver
+   (kernels/csrc/viterbi_tb.cu), the two-codeword grant's eq/demap
+   (kernels/csrc/mimo_eq_demap.cu) and the host resolver
    (csrc/resolver.cpp); their build times and ptxas registers/spills.
 2. kernels vs plain version: at the K values of the loaded cell's and the
    golden scenario's grants and K = 40 and 6144, n_iter 2 and 12, at the
@@ -51,6 +52,20 @@ exit) if any phase fails:
    From phase 3 on, every path (each of 3-8, the CLI's and the runner's
    processes included) must launch the Viterbi kernel and run the plain
    step loop on the card no time.
+2c. the two-codeword eq/demap kernel against its plain version (the
+   torch chain) on the same card tensors, within rtol 1e-4 plus atol 5e-4
+   of the peak (testing/mimo_grants.py): every variant (TM3 / TM4, 2 and
+   4 ports, several PMIs, unequal qm, n_re at a 256 boundary and past
+   one, 1 and 2 RX) on seeded grids of the MIMO cell's width, and every
+   grant of the MIMO cell's first batch through the core (its real grids
+   and grants); the largest error; at the cell's most common grant the
+   kernel's time (CUDA events and the profiler's device time) beside its
+   byte bound and the plain chain's time; one grant's eq/demap step to
+   the LLRs on the host, the kernel's against the parent's route (the
+   plain chain, the RE index uploaded per grant): CUDA kernels and copies
+   under torch.profiler (the kernel's must be 1) and host time per grant.
+   Every path from phase 3 on must run the plain chain on the card no
+   time; the launches of each path are reported.
 3. golden: the golden scenario (tests/golden/dl_mode.pcap), built by the
    port's own generator, run on the card; the pcap's sha256 must equal.
 4. loaded cell at full width (20 MHz, 512 subframes, batch 256, with its
@@ -66,8 +81,16 @@ exit) if any phase fails:
    TM3 / TM4 two-codeword grants and format-1A grants) on the card, held
    against ltesniffer_tpu_torch/testing/mimo_expected.json the same way;
    every CRC-ok payload must be one the generator sent; the fused kernel
-   must have launched and the pass kernel not; sf/s (first and warm
-   pass) and the host reads of the two-codeword path.
+   must have launched and the pass kernel not; the eq/demap kernel must
+   have launched once per two-codeword decode (the `p3_mimo` spans) and
+   the plain chain not at all; sf/s (first and warm pass) and the host
+   reads of the two-codeword path; then warm passes in turns on the
+   parent's route (the plain chain, the index uploaded per grant) and on
+   the kernel: sf/s and `p3_mimo`.  5b: a profiled MIMO pass.  The
+   profiled passes (4b, 5b, 6b) also count the CUDA launches and copies
+   of each of the port's launch chains (`CHAINS`: the SISO eq/demap and
+   its batched forms, the two-codeword eq/demap, the UL eq/demap, the
+   search tail) over the pass.
 6. the uplink: the UL golden scenario (tests/golden/ul_mode.pcap), built
    by the port's generator, through `LTESnifferCoreUL.run_dual_samples`
    on the card (sha256 equal); the bench's UL cell at full width (20 MHz,
@@ -130,8 +153,9 @@ exit) if any phase fails:
        -n 2 --overlap 200` in a subprocess on a file of the stream (one
        OS process per block, child k on cuda:{k % cards}): exit 0, merged
        pcap records equal 8b's; the wall time with start-up.
-9. the `kernels` JSON line (`viterbi_tb`'s entry carries the launches of
-   every path), then the result line.
+9. the `kernels` JSON line (`viterbi_tb`'s and `mimo_eq_demap`'s entries
+   carry the launches of every path, `mimo_eq_demap`'s the launch chains
+   of the profiled passes), then the result line.
 
 Imports torch, numpy, the standard library and the port only — no JAX.
 Writes only under a temporary directory and ltesniffer_tpu_torch/_build/.
@@ -187,6 +211,8 @@ TURBO_REPLACES = "ltesniffer_tpu/kernels/turbo_pallas.py:125"
 # XLA, not Pallas: _acs_scan (:56) and _traceback (:82), reached through
 # viterbi_decode_tb (:98) and viterbi_decode_tb_multi (:119)
 VITERBI_REPLACES = "ltesniffer_tpu/kernels/viterbi.py:56"
+# XLA, not Pallas: the jitted two-codeword eq/demap program
+MIMO_EQ_REPLACES = "ltesniffer_tpu/sniffer/pdsch_rx.py:130"
 
 
 def log(msg: str):
@@ -638,20 +664,238 @@ def report_viterbi(tv: dict, card: str):
             f"below the earlier design's {VITERBI_WARP_DESIGN_MS} ms")
 
 
+# ---------------------------------------------------------------------------
+# phase 2c: the two-codeword eq/demap kernel against its plain version
+# ---------------------------------------------------------------------------
+def grant_kind(a) -> tuple:
+    """(tm, ports, pmi, qm0, qm1, n_pad, rx) of eq_demap_mimo's args."""
+    grid, h, _, idx, _, _, tm, pmi, qm0, qm1 = a
+    return (tm, int(h.shape[1]), pmi, qm0, qm1, int(idx.shape[0]),
+            int(grid.shape[0]))
+
+
+def profile_step(step) -> dict:
+    """One call of `step` (warmed first) under torch.profiler: the CUDA
+    kernels it launched, its host-to-device and device-to-host copies and
+    the kernels' device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        step()
+        torch.cuda.synchronize()
+    out = dict(kernels=0, h2d=0, d2h=0, other=0, device_ms=0.0)
+    for e in p.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if "HtoD" in e.name:
+            out["h2d"] += 1
+        elif "DtoH" in e.name:
+            out["d2h"] += 1
+        elif "Memcpy" in e.name or "Memset" in e.name:
+            out["other"] += 1
+        else:
+            out["kernels"] += 1
+            out["device_ms"] += (e.time_range.end - e.time_range.start) / 1e3
+    return out
+
+
+def host_step_ms(step, n: int = 50) -> float:
+    """Host clock per call of `step`, each call ending in
+    torch.cuda.synchronize()."""
+    import torch
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+class parent_route:
+    """With `on`, the two-codeword path runs as before the eq/demap kernel:
+    the plain chain on the card, the grant's RE index uploaded per grant
+    (sniffer/pdsch_rx.py's cache emptied before each use)."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        from ltesniffer_tpu_torch.kernels import mimo_eq
+        from ltesniffer_tpu_torch.sniffer import pdsch_rx
+        self.saved = (mimo_eq.eq_demap_mimo, pdsch_rx._mimo_re_index)
+        if self.on:
+            index = pdsch_rx._mimo_re_index
+
+            def uncached(*a):
+                pdsch_rx._MIMO_IDX_CACHE.clear()
+                return index(*a)
+            mimo_eq.eq_demap_mimo = mimo_eq.eq_demap_mimo_plain
+            pdsch_rx._mimo_re_index = uncached
+        return self
+
+    def __exit__(self, *exc):
+        from ltesniffer_tpu_torch.kernels import mimo_eq
+        from ltesniffer_tpu_torch.sniffer import pdsch_rx
+        mimo_eq.eq_demap_mimo, pdsch_rx._mimo_re_index = self.saved
+        return False
+
+
+def check_mimo_eq(device, m_words, m_scales, tmp: str, card: str) -> dict:
+    """Phase 2c: the kernel against the plain version on every variant of
+    testing/mimo_grants.py at the MIMO cell's width and on every grant of
+    the cell's first batch (its real grids, through the core); its time
+    beside its bound at the cell's most common grant; one grant's eq/demap
+    step, the kernel's against the parent's route (the plain chain with the
+    RE index uploaded per grant): CUDA kernels and copies under
+    torch.profiler, and host time per grant."""
+    import numpy as np
+    import torch
+    from ltesniffer_tpu_torch.kernels import mimo_eq
+    from ltesniffer_tpu_torch.testing import mimo_cell, mimo_grants
+    err = 0.0
+    for v in mimo_grants.VARIANTS:
+        tm, _, pmi, qm0, qm1, _, _ = v
+        inp = mimo_grants.random_grant(v, seed=13, n_sc=mimo_cell.CELL.n_sc)
+        ts = mimo_grants.tensors(inp, device)
+        n0 = mimo_eq.LAUNCHES["mimo_eq_demap"]
+        got = mimo_eq.eq_demap_mimo(*ts, *inp[4], tm, pmi, qm0, qm1)
+        torch.cuda.synchronize()
+        if mimo_eq.LAUNCHES["mimo_eq_demap"] != n0 + 1:
+            raise AssertionError(f"{mimo_grants.variant_id(v)}: the call "
+                                 "did not launch the kernel once")
+        want = mimo_eq.eq_demap_mimo_plain(*ts, *inp[4], tm, pmi, qm0, qm1)
+        e, ok = mimo_grants.max_err(got, want)
+        n_diff = int((got != want).sum())
+        log(f"  {mimo_grants.variant_id(v)}: largest |kernel - plain| {e:.3g}"
+            f" ({n_diff} of {got.numel()} floats not equal)")
+        if not ok:
+            raise AssertionError(f"{mimo_grants.variant_id(v)}: kernel "
+                                 "outside the tolerance of the plain version")
+        err = max(err, e)
+    # the MIMO cell's first batch through the core: every grant's call held
+    real = mimo_eq.eq_demap_mimo
+    seen = dict(n=0, err=0.0, diff=0, floats=0, bad=[], kinds={})
+
+    def held(*a):
+        got = real(*a)
+        want = mimo_eq.eq_demap_mimo_plain(*a)
+        e, ok = mimo_grants.max_err(got, want)
+        k = grant_kind(a)
+        if not ok:
+            seen["bad"].append((k, e))
+        seen["n"] += 1
+        seen["err"] = max(seen["err"], e)
+        seen["diff"] += int((got != want).sum())
+        seen["floats"] += got.numel()
+        if k not in seen["kinds"]:
+            seen["kinds"][k] = [0, tuple(x.clone() if isinstance(
+                x, torch.Tensor) else x for x in a)]
+        seen["kinds"][k][0] += 1
+        return got
+    mimo_eq.eq_demap_mimo = held
+    try:
+        run_loaded(device, m_words[:MIMO_BATCH], m_scales[:MIMO_BATCH], tmp,
+                   batch_size=MIMO_BATCH, cell=mimo_cell.CELL)
+    finally:
+        mimo_eq.eq_demap_mimo = real
+    kinds = sorted(seen["kinds"].items(), key=lambda kv: -kv[1][0])
+    log(f"  the MIMO cell's first {MIMO_BATCH} subframes: {seen['n']} grants "
+        f"held, largest |kernel - plain| {seen['err']:.3g} ({seen['diff']} of "
+        f"{seen['floats']} floats not equal); kinds (tm, ports, pmi, qm0, "
+        f"qm1, n_pad, rx): {[(k, n) for k, (n, _) in kinds]}")
+    if seen["bad"] or seen["n"] == 0:
+        raise AssertionError(f"real grants: {len(seen['bad'])} outside the "
+                             f"tolerance {seen['bad'][:5]}, {seen['n']} held")
+    err = max(err, seen["err"])
+    # times at the cell's most common grant
+    kind, (_, a) = kinds[0]
+    tm, ports, pmi, qm0, qm1, n_pad, rx = kind
+    t_k1 = time_cuda(lambda: mimo_eq.eq_demap_mimo(*a), n=200)
+    t_p = time_cuda(lambda: mimo_eq.eq_demap_mimo_plain(*a), n=20)
+    t_k2 = time_cuda(lambda: mimo_eq.eq_demap_mimo(*a), n=200)
+    n_re = int(torch.unique(a[3]).numel())
+    nbytes = mimo_eq.bytes_moved(n_re, n_pad, rx, ports, qm0, qm1)
+    nops = mimo_eq.ops(n_pad, rx, ports, tm, qm0, qm1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+        (t_ops, "operations")
+    # one grant's eq/demap step as decode_grant_mimo runs it, to the LLRs
+    # on the host: the kernel (the RE index cached on the card) against
+    # the parent's route (the plain chain, the index uploaded per grant)
+    idx_host = a[3].cpu().numpy()
+
+    def kernel_step():
+        return mimo_eq.eq_demap_mimo(*a).cpu()
+
+    def parent_step():
+        idx = torch.from_numpy(idx_host).to(a[3].device)
+        return mimo_eq.eq_demap_mimo_plain(*a[:3], idx, *a[4:]).cpu()
+    pk, pp = profile_step(kernel_step), profile_step(parent_step)
+    hk1, hp1 = host_step_ms(kernel_step), host_step_ms(parent_step)
+    hp2, hk2 = host_step_ms(parent_step), host_step_ms(kernel_step)
+    log(f"  the cell's most common grant {kind} (n_re {n_re}; {nbytes} bytes,"
+        f" {nops} float32 operations) on {card}: kernel {min(t_k1, t_k2):.4f} "
+        f"ms (turns {t_k1:.4f}, {t_k2:.4f}; CUDA events over back-to-back "
+        f"calls of the wrapper, whose host work sets the pace); its device "
+        f"time {pk['device_ms']:.4f} ms (profiler); plain chain {t_p:.4f} ms;"
+        f" bound {bound:.6f} ms ({by}: max(bytes / 3.35 TB/s, ops / 67 "
+        f"TFLOP/s)); no PyTorch call computes this function, so there is no"
+        f" library time")
+    log(f"  one grant's eq/demap step to the LLRs on the host, kernel against"
+        f" the parent's route: CUDA kernels {pk['kernels']} / {pp['kernels']}"
+        f", host-to-device copies {pk['h2d']} / {pp['h2d']}, device-to-host "
+        f"{pk['d2h']} / {pp['d2h']}, other copies and sets {pk['other']} / "
+        f"{pp['other']}; device time {pk['device_ms']:.4f} / "
+        f"{pp['device_ms']:.4f} ms; host clock per grant (synchronized) "
+        f"{hk1:.4f}, {hk2:.4f} / {hp1:.4f}, {hp2:.4f} ms (turns)")
+    if pk["kernels"] + pp["kernels"] == 0:
+        log("  CUDA kernels per step: not measured (the profiler saw none)")
+    elif pk["kernels"] != 1:
+        raise AssertionError(f"the kernel's step launched {pk['kernels']} "
+                             "CUDA kernels, not 1")
+    return dict(err=err, ms=min(t_k1, t_k2), ms_turns=[t_k1, t_k2],
+                plain_ms=t_p, bound_ms=bound, bound_by=by, bytes=nbytes,
+                ops=nops, device_ms=pk["device_ms"],
+                shape=dict(zip(("tm", "ports", "pmi", "qm0", "qm1", "n_pad",
+                                "rx"), kind), n_re=n_re),
+                real_grants=seen["n"], variants=len(mimo_grants.VARIANTS),
+                step={"kernel": pk, "parent": pp,
+                      "host_ms": {"kernel": [hk1, hk2],
+                                  "parent": [hp1, hp2]}})
+
+
 def reset_counts():
-    from ltesniffer_tpu_torch.kernels import bcjr, turbo_decode, viterbi
-    for m in (bcjr, turbo_decode, viterbi):
+    from ltesniffer_tpu_torch.kernels import bcjr, mimo_eq, turbo_decode
+    from ltesniffer_tpu_torch.kernels import viterbi
+    for m in (bcjr, mimo_eq, turbo_decode, viterbi):
         m.reset_launches()
+
+
+EQ_LAUNCHES = {}     # path -> mimo_eq_demap launches (viterbi_count)
 
 
 def viterbi_count(path: str) -> int:
     """The Viterbi kernel's launches since the last reset_counts(); fails
-    if the path launched none or ran the plain step loop on the card."""
-    from ltesniffer_tpu_torch.kernels import viterbi
+    if the path launched none or ran the plain step loop on the card.
+    Also records the path's eq/demap kernel launches in EQ_LAUNCHES and
+    fails if it ran the plain eq/demap chain on the card."""
+    from ltesniffer_tpu_torch.kernels import mimo_eq, viterbi
     n = viterbi.LAUNCHES["viterbi"]
     p = viterbi.PLAIN_CUDA["viterbi"]
+    EQ_LAUNCHES[path] = mimo_eq.LAUNCHES["mimo_eq_demap"]
+    p_eq = mimo_eq.PLAIN_CUDA["mimo_eq_demap"]
     log(f"  {path}: viterbi_tb launches {n}, plain Viterbi step loops on "
-        f"the card {p}")
+        f"the card {p}; mimo_eq_demap launches {EQ_LAUNCHES[path]}, plain "
+        f"eq/demap chains on the card {p_eq}")
+    if p_eq != 0:
+        raise AssertionError(f"{path} ran the plain eq/demap chain on the "
+                             f"card {p_eq} times")
     if n <= 0:
         raise AssertionError(f"{path} launched no Viterbi kernel")
     if p != 0:
@@ -709,22 +953,101 @@ def run_loaded(device, words, scales, tmp: str, batch_size: int = 256,
     return c, acc, dt
 
 
+# the port's XLA-program counterparts that run as chains of torch launches
+# (sniffer/<module>.<function>, how it is called): each call of one runs
+# under a profiler range, so that a profiled pass counts its launches
+CHAINS = (("pdsch_rx", "_eq_demap_fn", "factory"),
+          ("pdsch_rx", "_eq_demap_batch_fn", "factory"),
+          ("pdsch_rx", "_eq_demap_prb_fn", "pair"),
+          ("pdsch_rx", "_eq_demap_mimo_fn", "factory"),
+          ("pusch_rx", "_eq_batch_ul_fn", "factory"),
+          ("pdcch_rx", "_candidate_decode_tail", "call"))
+
+
+class chain_ranges:
+    """Within the block, every call of a CHAINS function (or of the
+    function its factory returns) runs under the profiler range
+    "chain:<module>.<function>"."""
+
+    def __enter__(self):
+        import importlib
+        import torch
+        self.saved = []
+        for mod_name, fn_name, kind in CHAINS:
+            mod = importlib.import_module(
+                f"ltesniffer_tpu_torch.sniffer.{mod_name}")
+            orig = getattr(mod, fn_name)
+            tag = f"chain:{mod_name}.{fn_name}"
+
+            def ranged(run, tag=tag):
+                def inner(*a, **k):
+                    with torch.profiler.record_function(tag):
+                        return run(*a, **k)
+                return inner
+            if kind == "call":
+                new = ranged(orig)
+            elif kind == "factory":
+                def new(*a, _orig=orig, _r=ranged, **k):
+                    return _r(_orig(*a, **k))
+            else:
+                def new(*a, _orig=orig, _r=ranged, **k):
+                    run, *rest = _orig(*a, **k)
+                    return (_r(run), *rest)
+            setattr(mod, fn_name, new)
+            self.saved.append((mod, fn_name, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn_name, orig in self.saved:
+            setattr(mod, fn_name, orig)
+        return False
+
+
+def chain_launches(p) -> dict:
+    """{function: {calls, launches, copies}} of a profile taken under
+    chain_ranges: the CUDA runtime's kernel launches and memory copies
+    whose host call starts inside one of the function's ranges (the
+    sniffer's host runs on one thread)."""
+    from torch.autograd import DeviceType
+    evs = [e for e in p.events() if e.device_type == DeviceType.CPU]
+    ranges = {}
+    for e in evs:
+        if e.name.startswith("chain:"):
+            ranges.setdefault(e.name[6:], []).append(
+                (e.time_range.start, e.time_range.end))
+    launch = [e.time_range.start for e in evs
+              if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))]
+    copy = [e.time_range.start for e in evs
+            if e.name.startswith("cudaMemcpy")]
+    out = {}
+    for name, rs in sorted(ranges.items()):
+        def inside(ts):
+            return sum(1 for t in ts if any(a <= t <= b for a, b in rs))
+        out[name] = dict(calls=len(rs), launches=inside(launch),
+                         copies=inside(copy))
+    if ranges and not launch:
+        out = {k: dict(v, launches=None) for k, v in out.items()}
+    return out
+
+
 def profile_pass(run):
     """One more pass of a cell (`run()` returns its wall seconds) under
     torch.profiler: device time by kernel name, the device's busy share of
-    the wall time, and the host spans of the port's stage profiler."""
+    the wall time, the host spans of the port's stage profiler, and the
+    launches of each CHAINS function over the pass (returned)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from ltesniffer_tpu_torch.sniffer import prof
     prof.reset()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as p:
+    with chain_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as p:
         dt = run()
     from torch.autograd import DeviceType
     rows = []
     for e in p.key_averages():
-        # kernels only: host ops carry their kernels' time as well
-        if e.device_type != DeviceType.CUDA:
+        # kernels only: host ops carry their kernels' time as well, and
+        # the chain ranges show on the device timeline as annotations
+        if e.device_type != DeviceType.CUDA or e.key.startswith("chain:"):
             continue
         t = getattr(e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0.0))
@@ -736,16 +1059,26 @@ def profile_pass(run):
         log("  device time: not measured (the profiler saw no kernels)")
     else:
         log(f"  profiled pass {dt:.2f} s wall; device busy {busy:.1f} ms "
-            f"({100 * busy / (1e3 * dt):.1f} % of wall)")
+            f"({100 * busy / (1e3 * dt):.1f} % of wall); "
+            f"{sum(r[1] for r in rows)} device events")
         for ms, n, name in rows[:12]:
             log(f"    {ms:9.2f} ms {n:7d}x  {name[:90]}")
         for ms, n, name in rows:
-            if any(k in name for k in ("turbo_decode_kernel",
-                                       "bcjr_kernel", "viterbi_tb_kernel")):
+            if any(k in name for k in ("turbo_decode_kernel", "bcjr_kernel",
+                                       "viterbi_tb_kernel",
+                                       "mimo_eq_demap_kernel")):
                 log(f"  port kernel {name[:60]}: {ms:.3f} ms over {n} "
                     f"launches ({100 * ms / busy:.2f} % of device time)")
     for line in prof.pretty().splitlines():
         log(f"  host span {line}")
+    chains = chain_launches(p)
+    for name, c in chains.items():
+        per = ("not measured" if c["launches"] is None else
+               f"{c['launches']} kernel launches "
+               f"({c['launches'] / max(1, c['calls']):.1f} a call)")
+        log(f"  launch chain {name}: {c['calls']} calls, {per}, "
+            f"{c['copies']} memory copies")
+    return chains
 
 
 def compare_loaded(rec: dict, c, acc):
@@ -1319,7 +1652,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from ltesniffer_tpu_torch import native
     from ltesniffer_tpu_torch.kernels import bcjr, nvcc_build, turbo_decode
-    from ltesniffer_tpu_torch.kernels import viterbi
+    from ltesniffer_tpu_torch.kernels import mimo_eq, viterbi
     from ltesniffer_tpu_torch.phy import tables, turbo as turbo_host
     from ltesniffer_tpu_torch.io import sdr
     from ltesniffer_tpu_torch.sniffer import core, pdsch_rx, prof, pusch_rx
@@ -1336,11 +1669,13 @@ def main() -> int:
             log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
                 f"device {kind}")
             # one compiler run for each source, all started together
-            with concurrent.futures.ThreadPoolExecutor(4) as ex:
+            with concurrent.futures.ThreadPoolExecutor(5) as ex:
                 builds = {m.__name__.rsplit(".", 1)[1]: ex.submit(m.build)
-                          for m in (turbo_decode, bcjr, viterbi, native)}
+                          for m in (turbo_decode, bcjr, viterbi, mimo_eq,
+                                    native)}
             for name, mod in (("turbo_decode", "turbo_decode"),
-                              ("bcjr", "bcjr"), ("viterbi_tb", "viterbi")):
+                              ("bcjr", "bcjr"), ("viterbi_tb", "viterbi"),
+                              ("mimo_eq_demap", "mimo_eq")):
                 log(f"  nvcc build of kernels/csrc/{name}.cu: "
                     f"{builds[mod].result():.2f} s")
                 sass = nvcc_build.sass_counts(name)
@@ -1469,6 +1804,9 @@ def main() -> int:
         with Phase("2b the Viterbi kernel vs its plain version"):
             tv = check_viterbi(device, loaded_stream, rng)
             report_viterbi(tv, card)
+        with Phase("2c the two-codeword eq/demap kernel vs its plain "
+                   "version"):
+            tq = check_mimo_eq(device, m_words, m_scales, tmp, card)
         with Phase("3 golden scenario on the card"):
             reset_counts()
             run_golden(device, tmp)
@@ -1520,7 +1858,8 @@ def main() -> int:
                 f"subframes/s on {card} ({dt2:.2f} s wall; p2_search "
                 f"{search['s']:.4f} s)")
         with Phase("4b where the time goes (profiled second pass)"):
-            profile_pass(lambda: run_loaded(device, words, scales, tmp)[2])
+            chains = {"loaded": profile_pass(
+                lambda: run_loaded(device, words, scales, tmp)[2])}
         with Phase("5 MIMO cell, 20 MHz, 2x2, 64 subframes, batch "
                    f"{MIMO_BATCH}"):
             reset_counts()
@@ -1531,6 +1870,8 @@ def main() -> int:
                                          cell=mimo_cell.CELL)
             n_fused_m = turbo_decode.LAUNCHES["turbo_decode"]
             n_pass_m = bcjr.LAUNCHES["bcjr"]
+            n_eq_m = mimo_eq.LAUNCHES["mimo_eq_demap"]
+            n_eq_plain = mimo_eq.PLAIN_CUDA["mimo_eq_demap"]
             vit["mimo"] = viterbi_count("MIMO cell")
             reads = pdsch_rx.HOST_READS["mimo"]
             sm = cm.summary()
@@ -1546,7 +1887,12 @@ def main() -> int:
                 f"grants; p3_mimo span {mspan['s']:.4f} s over "
                 f"{mspan['n']} decodes")
             log(f"  launches in this run: turbo_decode (fused) {n_fused_m},"
-                f" bcjr (pass kernel) {n_pass_m}")
+                f" bcjr (pass kernel) {n_pass_m}, mimo_eq_demap {n_eq_m} "
+                f"(plain eq/demap chains on the card {n_eq_plain}); per "
+                f"two-codeword decode: {n_eq_m / max(1, mspan['n']):.2f} "
+                f"eq/demap launches, {n_fused_m / max(1, mspan['n']):.2f} "
+                f"turbo launches, {reads / max(1, mspan['n']):.2f} host "
+                "reads")
             compare_loaded(rec_mimo, cm, acc_m)
             sent = {(t["sf"], t["rnti"], t["payload"]) for t in mimo_truth}
             bad = [r for r in cm.results if r.crc_ok and (
@@ -1565,6 +1911,13 @@ def main() -> int:
             if n_pass_m != 0:
                 raise AssertionError(f"the MIMO path launched the pass "
                                      f"kernel {n_pass_m} times")
+            if n_eq_m != mspan["n"] or n_eq_m <= 0:
+                raise AssertionError(f"mimo_eq_demap launched {n_eq_m} times"
+                                     f" for {mspan['n']} two-codeword "
+                                     "decodes")
+            if n_eq_plain != 0:
+                raise AssertionError(f"the MIMO path ran the plain eq/demap "
+                                     f"chain on the card {n_eq_plain} times")
             prof.reset()
             _, _, dt_m2 = run_loaded(device, m_words, m_scales, tmp,
                                      batch_size=MIMO_BATCH,
@@ -1573,6 +1926,27 @@ def main() -> int:
             log(f"  warm second pass: {mimo_cell.N_SF / dt_m2:.1f} "
                 f"subframes/s on {card} ({dt_m2:.2f} s wall; p3_mimo "
                 f"{mspan2['s']:.4f} s over {mspan2['n']} decodes)")
+            # before and after in turns: the parent's route (the plain
+            # chain, the RE index uploaded per grant), then the kernel
+            turns = {"kernel": [(dt_m2, mspan2["s"])], "parent": []}
+            for route in ("parent", "kernel", "parent"):
+                prof.reset()
+                with parent_route(route == "parent"):
+                    _, _, dt_r = run_loaded(device, m_words, m_scales, tmp,
+                                            batch_size=MIMO_BATCH,
+                                            cell=mimo_cell.CELL)
+                sp = prof.report().get("p3_mimo", {"s": 0.0, "n": 0})
+                turns[route].append((dt_r, sp["s"]))
+                log(f"  warm pass, {route} route: "
+                    f"{mimo_cell.N_SF / dt_r:.1f} subframes/s on {card} "
+                    f"({dt_r:.2f} s wall; p3_mimo {sp['s']:.4f} s over "
+                    f"{sp['n']} decodes, {1e3 * sp['s'] / max(1, sp['n']):.3f}"
+                    " ms a decode)")
+        with Phase("5b where the MIMO cell's time goes (profiled pass)"):
+            chains["mimo"] = profile_pass(
+                lambda: run_loaded(device, m_words, m_scales, tmp,
+                                   batch_size=MIMO_BATCH,
+                                   cell=mimo_cell.CELL)[2])
         with Phase("6 uplink: UL golden, UL cell (20 MHz, 1024 subframes, "
                    "8 PUSCH/sf, batch 256), UCI grant"):
             reset_counts()
@@ -1614,7 +1988,8 @@ def main() -> int:
             run_uci(device)
             vit["uci"] = viterbi_count("UCI grant")
         with Phase("6b where the UL cell's time goes (profiled pass)"):
-            profile_pass(lambda: run_ul(device, ul_dl, ul_ul, tmp)[2])
+            chains["ul"] = profile_pass(
+                lambda: run_ul(device, ul_dl, ul_ul, tmp)[2])
         with Phase("7a DL stream (20 MHz, 512 subframes, noise lead, 300 Hz "
                    "CFO, 2.5-subframe gap) through run_source"):
             rec_s = json.load(open(EXPECTED_DL_STREAM))
@@ -1819,7 +2194,22 @@ def main() -> int:
                     **{k: tv["mib"][k] for k in (
                         "ms", "plain_ms", "bound_ms", "bound_by",
                         "smem_per_block", "warps_per_sm")}},
-            "launches_per_path": vit}]}
+            "launches_per_path": vit}, {
+            "name": "mimo_eq_demap", "route": "cuda",
+            "source": "ltesniffer_tpu_torch/kernels/csrc/mimo_eq_demap.cu",
+            "replaces": MIMO_EQ_REPLACES, "launches": n_eq_m,
+            "max_abs_err": tq["err"], "ms": tq["ms"],
+            "plain_ms": tq["plain_ms"], "bound_ms": tq["bound_ms"],
+            "bound_by": tq["bound_by"], "library_ms": None,
+            "shape": tq["shape"], "device_ms": tq["device_ms"],
+            "ms_turns": tq["ms_turns"], "variants": tq["variants"],
+            "real_grants": tq["real_grants"], "step": tq["step"],
+            "two_codeword_decodes": mspan["n"],
+            "mimo_turns": {r: [{"sf_per_s": mimo_cell.N_SF / dt,
+                                "p3_mimo_s": sp} for dt, sp in v]
+                           for r, v in turns.items()},
+            "launches_per_path": dict(EQ_LAUNCHES),
+            "launch_chains": chains}]}
         log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,8 +10,9 @@ per-DCI decode, softbuffer reuse for retransmissions, dual-table retry
 handled by the caller (MCSTracking).
 
 The per-RE math (gather/equalize/demap/descramble via the Gold-basis
-matmul) and the turbo decoder run as torch ops on the grids' device; the
-thin glue (segmentation sizes, scatter positions, TB CRC) is NumPy on the
+matmul) and the turbo decoder run as torch ops on the grids' device (a
+two-codeword grant's eq/demap/descramble as one launch of
+`kernels/mimo_eq.py`'s kernel on the card); the thin glue (segmentation sizes, scatter positions, TB CRC) is NumPy on the
 host.  Integer words that the JAX package keeps as uint32 are int64 here
 (torch's uint32 has little CUDA support) and become uint32 on the host.
 """
@@ -27,7 +28,8 @@ import torch
 from ltesniffer_tpu_torch.phy import crc, pdsch as pdsch_mod, sequences, turbo as turbo_mod
 from ltesniffer_tpu_torch.phy import uci as uci_mod
 from ltesniffer_tpu_torch.phy.params import CellConfig
-from ltesniffer_tpu_torch.kernels import chest, demapper, turbo as kturbo
+from ltesniffer_tpu_torch.kernels import chest, demapper, mimo_eq
+from ltesniffer_tpu_torch.kernels import turbo as kturbo
 from ltesniffer_tpu_torch.kernels.cplx import const
 from ltesniffer_tpu_torch.sniffer import prof
 
@@ -156,23 +158,39 @@ def _eq_demap_mimo_fn(cell: CellConfig, qm0: int, qm1: int, n_re_pad: int,
     """2-layer equalize + per-codeword demap/descramble.
 
     (grid_flat (RX, L, 2), h_flat (RX, P, L, 2), noise 0-d, re_idx
-     (n_re_pad,) int64, c_init0 / c_init1 0-d int64) -> [llr0, llr1]"""
-    from ltesniffer_tpu_torch.kernels import mimo as mimo_mod
-
+     (n_re_pad,) int64, c_init0 / c_init1 ints) -> both codewords' LLRs in
+    one (n_re_pad * (qm0 + qm1),) buffer: one launch of the kernel
+    `kernels/csrc/mimo_eq_demap.cu` on the card, the plain torch chain on
+    the CPU (`kernels/mimo_eq.py`)."""
     def run(grid_flat, h_flat, noise_var, re_idx, c_init0, c_init1):
-        y = grid_flat[:, re_idx, :][None]            # (1, RX, n, 2)
-        hh = h_flat[:, :, re_idx, :][None]           # (1, RX, P, n, 2)
-        nv = noise_var.reshape(1)
-        if tm == 4:
-            he = mimo_mod.effective_channel_tm4(hh, pmi, 2)
-        else:
-            he = mimo_mod.effective_channel_tm3(hh)
-        x = mimo_mod.mmse_2layer(y, he, nv)[0]       # (2, n, 2)
-        return [_descramble(demapper.llr(x[q], qm), ci, n_re_pad * qm)
-                for q, (qm, ci) in enumerate(((qm0, c_init0),
-                                              (qm1, c_init1)))]
+        return mimo_eq.eq_demap_mimo(grid_flat, h_flat, noise_var, re_idx,
+                                     c_init0, c_init1, tm, pmi, qm0, qm1)
 
     return run
+
+
+_MIMO_IDX_CACHE: Dict[tuple, tuple] = {}
+
+
+def _mimo_re_index(cell: CellConfig, sf_idx: int, cfi: int,
+                   prb_mask: np.ndarray, device):
+    """(n_re, n_pad, (n_pad,) int64 RE index on `device`) of a
+    two-codeword grant, the padded tail repeating the last RE; uploaded
+    once per (subframe index, CFI, PRB mask, device)."""
+    mask = np.asarray(prb_mask, bool)
+    key = (cell, sf_idx, cfi, mask.tobytes(), str(device))
+    hit = _MIMO_IDX_CACHE.get(key)
+    if hit is None:
+        re_idx = pdsch_mod.grant_re_indices(cell, sf_idx, cfi, mask)
+        n_re = len(re_idx)
+        n_pad = _bucket(n_re)
+        idx = np.full(n_pad, re_idx[-1], dtype=np.int64)
+        idx[:n_re] = re_idx
+        if len(_MIMO_IDX_CACHE) > 512:
+            _MIMO_IDX_CACHE.clear()
+        hit = _MIMO_IDX_CACHE[key] = (n_re, n_pad,
+                                      torch.from_numpy(idx).to(device))
+    return hit
 
 
 def decode_grant_mimo(grids, h, noise_var, b: int, cell: CellConfig,
@@ -183,25 +201,20 @@ def decode_grant_mimo(grids, h, noise_var, b: int, cell: CellConfig,
     """Decode a 2-codeword spatial-multiplexed grant.  Returns per-codeword
     PdschResult list (capability parity: `DL_Sniffer_PDSCH.cc` TM3/TM4 path).
 
-    Both codewords' LLRs come to the host in one read; their code blocks
-    are decoded together, one decoder call (and one read) per code-block
-    size — each block decodes on its own, so the bits are those of two
-    separate decodes."""
-    re_idx = pdsch_mod.grant_re_indices(cell, sf_idx, cfi, prb_mask)
-    n_re = len(re_idx)
+    Both codewords' LLRs come out of one kernel launch in one buffer and
+    to the host in one read; their code blocks are decoded together, one
+    decoder call (and one read) per code-block size — each block decodes
+    on its own, so the bits are those of two separate decodes."""
     dev = grids.device
-    n_pad = _bucket(n_re)
-    idx = np.full(n_pad, re_idx[-1], dtype=np.int64)
-    idx[:n_re] = re_idx
+    n_re, n_pad, idx = _mimo_re_index(cell, sf_idx, cfi, prb_mask, dev)
     ci = [pdsch_mod.scrambling_cinit(rnti, q, sf_idx, cell.n_id_cell)
           for q in (0, 1)]
     fn = _eq_demap_mimo_fn(cell, qms[0], qms[1], n_pad, tm, pmi)
     gflat = grids[b].reshape(grids.shape[1], -1, 2)
     hflat = h[b].reshape(h.shape[1], h.shape[2], -1, 2)
-    llrs = fn(gflat, hflat, noise_var[b], torch.from_numpy(idx).to(dev),
-              *(torch.tensor(c, dtype=torch.int64, device=dev) for c in ci))
-    both = _host(torch.cat(llrs))
-    cw = [both[:len(llrs[0])], both[len(llrs[0]):]]
+    both = _host(fn(gflat, hflat, noise_var[b], idx, *ci))
+    n0 = n_pad * qms[0]
+    cw = [both[:n0], both[n0:]]
     segs = [_derm_cbs(cw[q][:n_re * qms[q]], tbss[q], qms[q], rvs[q], n_re,
                       soft_buffers, harq_keys[q]) for q in (0, 1)]
     bits = _decode_cbs([d for seg in segs if seg is not None

@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from ltesniffer_tpu_torch.kernels import bcjr, turbo, turbo_decode, viterbi
+from ltesniffer_tpu_torch.kernels import bcjr, mimo_eq, turbo, turbo_decode
+from ltesniffer_tpu_torch.kernels import viterbi
+from ltesniffer_tpu_torch.testing import mimo_grants
 
 torch.set_num_threads(1)
 
@@ -400,6 +402,30 @@ def test_unified_search_through_kernel_equals_plain(card, monkeypatch):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", mimo_grants.VARIANTS,
+                         ids=[mimo_grants.variant_id(v)
+                              for v in mimo_grants.VARIANTS])
+def test_mimo_eq_kernel_matches_plain(card, variant):
+    """One launch of the two-codeword eq/demap kernel per call, within
+    the tolerance of the plain chain on the same card tensors and of the
+    plain chain on the host, at the MIMO cell's grid width (100 PRB)."""
+    tm, ports, pmi, qm0, qm1, _, _ = variant
+    inp = mimo_grants.random_grant(variant, seed=5, n_sc=1200)
+    ts = mimo_grants.tensors(inp, card)
+    n0 = mimo_eq.LAUNCHES["mimo_eq_demap"]
+    got = mimo_eq.eq_demap_mimo(*ts, *inp[4], tm, pmi, qm0, qm1)
+    torch.cuda.synchronize()
+    assert mimo_eq.LAUNCHES["mimo_eq_demap"] == n0 + 1
+    assert got.shape == (len(inp[3]) * (qm0 + qm1),)
+    for want in (mimo_eq.eq_demap_mimo_plain(*ts, *inp[4], tm, pmi, qm0,
+                                             qm1),
+                 mimo_eq.eq_demap_mimo(*mimo_grants.tensors(inp, "cpu"),
+                                       *inp[4], tm, pmi, qm0, qm1)):
+        err, ok = mimo_grants.max_err(got, want)
+        assert ok, f"largest error {err}"
+
+
 @pytest.fixture
 def two_cards():
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
@@ -461,3 +487,22 @@ def test_viterbi_on_second_card(two_cards):
     for a, b in zip(got, want):
         assert a.device == second
         np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_mimo_eq_on_second_card(two_cards):
+    """The eq/demap kernel on cuda:1 while cuda:0 is current: its output
+    lies on cuda:1 and is within the tolerance of the plain chain there."""
+    first, second = two_cards
+    variant = mimo_grants.VARIANTS[8]          # TM3, 4 ports: the cycle
+    tm, ports, pmi, qm0, qm1, _, _ = variant
+    inp = mimo_grants.random_grant(variant, seed=6, n_sc=1200)
+    ts = mimo_grants.tensors(inp, second)
+    want = mimo_eq.eq_demap_mimo_plain(*ts, *inp[4], tm, pmi, qm0, qm1)
+    with torch.cuda.device(first):
+        got = mimo_eq.eq_demap_mimo(*ts, *inp[4], tm, pmi, qm0, qm1)
+        torch.cuda.synchronize(second)
+        assert torch.cuda.current_device() == first.index
+    assert got.device == second
+    err, ok = mimo_grants.max_err(got, want)
+    assert ok, f"largest error {err}"
