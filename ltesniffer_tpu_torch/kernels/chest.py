@@ -55,6 +55,13 @@ def crs_constants(cell: CellConfig):
 
 
 @functools.lru_cache(maxsize=16)
+def _crs_sym_index(cell: CellConfig) -> np.ndarray:
+    """crs_constants' symbol slots, flat (P * 4,): the gather index of
+    `estimate`, cached beside them so its device copy is uploaded once."""
+    return crs_constants(cell)[0].reshape(-1)
+
+
+@functools.lru_cache(maxsize=16)
 def interp_matrices(cell: CellConfig):
     """(W_freq: (P, 4, n_sc, 2*n_prb), W_time: (P, 14, 4)) linear interp.
 
@@ -133,7 +140,7 @@ def estimate(grid, sf_idx, cell: CellConfig):
     P = syms.shape[0]
 
     # per-port CRS symbol gather (ports 2/3 pilot in symbols 1/8)
-    g_sym = grid[:, :, const(syms.reshape(-1), dev)]
+    g_sym = grid[:, :, const(_crs_sym_index(cell), dev)]
     g_sym = g_sym.reshape(B, RX, P, 4, grid.shape[3], 2)  # (B, RX, P, 4, sc, 2)
     kp = const(k_pos, dev)                              # (P, 4, n2)
     pil = torch.gather(

@@ -13,24 +13,36 @@ numpy constant to a device once.
 """
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
-_CONST_CACHE: dict = {}
+_CONST_CACHE: dict = {}    # (id(arr), device, dtype) -> device tensor
+UPLOADS = {"n": 0}         # cache misses: host constants copied so far
 
 
 def const(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
     """Device copy of a host constant, uploaded once per (array, device,
-    dtype).  ``arr`` must be a long-lived array (lru-cached tables): the
-    cache keeps a reference to it, so its id stays unique."""
+    dtype) and kept exactly as long as the array lives: the cache holds
+    the array only weakly, and a `weakref.finalize` on it drops its
+    entries, so a cleared or evicted host table frees its device copies.
+    ``arr`` should be a long-lived array (an lru-cached table): a new
+    array each call uploads each call."""
     key = (id(arr), str(device), dtype)
-    hit = _CONST_CACHE.get(key)
-    if hit is None or hit[0] is not arr:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+    t = _CONST_CACHE.get(key)
+    if t is None:
+        src = np.ascontiguousarray(arr)
+        t = torch.from_numpy(src)
         t = t.to(device=device, dtype=dtype) if dtype is not None \
             else t.to(device)
-        hit = _CONST_CACHE[key] = (arr, t)
-    return hit[1]
+        if src is arr and t.data_ptr() == src.ctypes.data:
+            t = t.clone()      # a CPU tensor must not keep `arr` alive
+        _CONST_CACHE[key] = t
+        UPLOADS["n"] += 1
+        # not at exit: the process's tensors go with it
+        weakref.finalize(arr, _CONST_CACHE.pop, key, None).atexit = False
+    return t
 
 
 def to_ri(x: np.ndarray) -> np.ndarray:

@@ -89,7 +89,8 @@ def run_child(args) -> int:
     c = multihost.run_block(factory, blk)
     c.close()
     seconds = time.perf_counter() - t0
-    from ltesniffer_tpu_torch.kernels import bcjr, turbo_decode, viterbi
+    from ltesniffer_tpu_torch.kernels import bcjr, pdcch_tail, turbo_decode
+    from ltesniffer_tpu_torch.kernels import viterbi
     with open(os.path.join(args.workdir, f"host{args.child}.json"), "w") as f:
         json.dump({"device": args.child_device, "seconds": seconds,
                    "subframes": len(blk.samples) // cell.sf_len,
@@ -98,7 +99,10 @@ def run_child(args) -> int:
                                 "bcjr": bcjr.LAUNCHES["bcjr"],
                                 "viterbi": viterbi.LAUNCHES["viterbi"],
                                 "viterbi_plain_cuda":
-                                viterbi.PLAIN_CUDA["viterbi"]},
+                                viterbi.PLAIN_CUDA["viterbi"],
+                                **pdcch_tail.LAUNCHES,
+                                "pdcch_tail_plain_cuda":
+                                sum(pdcch_tail.PLAIN_CUDA.values())},
                    "summary": c.summary(),
                    "results": [dict(sfn=r.dci.sfn, sf_idx=r.dci.sf_idx,
                                     rnti=r.dci.rnti, fmt=r.dci.fmt,

@@ -119,11 +119,16 @@ def int_to_bits(v: int, n: int) -> np.ndarray:
     return np.array([(v >> (n - 1 - i)) & 1 for i in range(n)], dtype=np.uint8)
 
 
+@functools.lru_cache(maxsize=8)
+def _msb_weights(n: int) -> np.ndarray:
+    """(n,) int64 bit weights, MSB first."""
+    return np.array([1 << (n - 1 - i) for i in range(n)], np.int64)
+
+
 def batched_crc_to_int(bits, poly_n):
     """Batched CRC returned as int64 integers (e.g. candidate RNTIs)."""
     from ltesniffer_tpu_torch.kernels.cplx import const
     poly, n = poly_n
     c = batched_crc(bits, poly_n).to(torch.int64)
-    weights = const(np.array([1 << (n - 1 - i) for i in range(n)],
-                             np.int64), bits.device)
+    weights = const(_msb_weights(n), bits.device)
     return torch.sum(c * weights, dim=-1)

@@ -84,6 +84,9 @@ def gold_basis(length: int):
     return x1, basis
 
 
+_SHIFTS31 = np.arange(31, dtype=np.int64)     # c_init bits 0-30
+
+
 def gold_sequence_torch(c_init, length: int):
     """Gold sequences for a tensor of integer ``c_init`` values (..., ).
 
@@ -95,7 +98,7 @@ def gold_sequence_torch(c_init, length: int):
     dev = c_init.device
     x1 = const(x1, dev, torch.int64)
     basis = const(basis, dev, torch.float32)
-    shifts = const(np.arange(31, dtype=np.int64), dev)
+    shifts = const(_SHIFTS31, dev)
     c = c_init.to(torch.int64) & 0xFFFFFFFF
     bits = ((c[..., None] >> shifts) & 1).to(torch.float32)     # (..., 31)
     x2 = torch.remainder(torch.matmul(bits, basis), 2.0).to(torch.int64)

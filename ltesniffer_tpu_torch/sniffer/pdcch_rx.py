@@ -6,8 +6,12 @@ walks the CCE tree sequentially, decoding candidates on demand
 *every* payload size for a whole batch of subframes in one pass:
 
   grids/h -> PDCCH RE gather -> SFBC/port0 equalize -> QPSK LLRs ->
-  per-CCE power -> {per payload-size D: de-rate-match (constant-matrix
-  matmul) -> batched Viterbi -> payload bits + CRC-XOR RNTIs}
+  per-CCE power -> {every payload size D: de-rate-match -> ONE batched
+  Viterbi -> payload bits + CRC-XOR RNTIs -> packed host words}
+
+The tail after the per-CCE power runs on the card as three kernel
+launches (`kernels/pdcch_tail.py`: `pdcch_derm`, the Viterbi,
+`pdcch_crc_pack`), on the CPU as the plain torch chain.
 
 The host-side acceptance resolver (`dci_search.py`) then replays the
 reference's sequential pruning semantics over these precomputed results.
@@ -26,10 +30,10 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ltesniffer_tpu_torch.phy import conv, crc, dci as dci_mod, grid as grid_mod
+from ltesniffer_tpu_torch.phy import conv, dci as dci_mod, grid as grid_mod
 from ltesniffer_tpu_torch.phy import search_space
 from ltesniffer_tpu_torch.phy.params import CellConfig
-from ltesniffer_tpu_torch.kernels import chest, demapper, ofdm, viterbi
+from ltesniffer_tpu_torch.kernels import chest, demapper, ofdm, pdcch_tail
 from ltesniffer_tpu_torch.kernels.cplx import const, to_ri
 
 
@@ -71,97 +75,21 @@ def _static_maps(cell: CellConfig, cfi: int):
     }
 
 
-_W16 = np.array([1 << (15 - i) for i in range(16)], np.int64)
-_W32 = (1 << np.arange(32, dtype=np.int64))
-
-
-def _u32_to_i32(x):
-    """Reinterpret int64 values holding u32 words as int32 (two's
-    complement), explicitly: torch's uint32 has little CUDA support."""
-    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
-
-
-def _pack_pairs16(v):
-    """(B, m) int64 16-bit values -> (B, ceil(m/2)) u32 words (low | high
-    << 16), in int64."""
-    m = v.shape[1]
-    if m & 1:
-        v = torch.nn.functional.pad(v, (0, 1))
-    return v[:, 0::2] | (v[:, 1::2] << 16)
-
-
-def _f16_bits(x):
-    """float32 -> float16 (round to nearest even) bit patterns, int64."""
-    return x.to(torch.float16).view(torch.int16).to(torch.int64) & 0xFFFF
-
-
 def _candidate_decode_tail(llr, cce_power, size_consts, n_loc: int, B: int,
                            scalars=None) -> dict:
-    """Shared tail of the blind search: de-rate-match every payload size
-    (constant-matrix matmul), ONE Viterbi call over all (size x location
-    x subframe) candidates (on the card one kernel launch, handed each
-    size's (B*n_loc, 3, D) LLRs as they are), CRC-XOR RNTIs, and the
-    fused host word matrix (meta | payload words | cce power) whose
-    single host read covers resolve + payloads.
+    """Shared tail of the blind search: de-rate-match every payload size,
+    ONE Viterbi call over all (size x location x subframe) candidates,
+    CRC-XOR RNTIs, and the fused host word matrix (meta | payload words |
+    cce power) whose single host read covers resolve + payloads.  On the
+    card three kernel launches (`kernels/pdcch_tail.py`: `pdcch_derm`, the
+    Viterbi, `pdcch_crc_pack`), on the CPU the plain torch chain.
 
     Returns per payload size D: bits_{D} (B, n_loc, D) uint8 and
-    rnti_{D} (B, n_loc) int64; cand_meta (B, n_loc, S) int64 [rnti |
-    bit0 << 16]; cand_pay (B, n_loc, S, 2) int64 (u32 payload words);
-    cand_fused (B, W) int32."""
-    dev = llr.device
-    flats = []
-    for D, per_lvl in size_consts.items():
-        d_llrs = torch.zeros((B, n_loc, 3 * D), dtype=torch.float32,
-                             device=dev)
-        for l, (sel, g, W) in per_lvl.items():
-            cand = llr[:, const(g.reshape(-1), dev)].reshape(B, len(sel), -1)
-            d = torch.einsum("bne,ek->bnk", cand, const(W, dev))
-            d_llrs[:, const(sel, dev)] = d
-        # e_to_d maps into stream-major (3, D) flat layout
-        flats.append(d_llrs.reshape(B * n_loc, 3, D))
-    all_bits = viterbi.viterbi_decode_tb_multi(flats)
-    w16 = const(_W16, dev)
-    w32 = const(_W32, dev)
-    out = {}
-    metas = []
-    pays = []
-    for D, bits in zip(size_consts.keys(), all_bits):
-        bits = bits.reshape(B, n_loc, D)
-        payload = bits[..., :D - 16]
-        calc = crc.batched_crc_to_int(payload, crc.CRC16)
-        rx16 = torch.sum(bits[..., D - 16:].to(torch.int64) * w16, dim=-1)
-        rnti = calc ^ rx16
-        out[f"bits_{D}"] = bits
-        out[f"rnti_{D}"] = rnti
-        # candidate meta word: rnti (16 bit) | payload bit0 << 16 — all
-        # the host resolver needs pre-acceptance (0/1A flag per
-        # `falcon_pdcch.c:146-152`)
-        metas.append(rnti | (payload[..., 0].to(torch.int64) << 16))
-        # packed payload words (u32 values in int64)
-        pad = torch.nn.functional.pad(payload, (0, 64 - (D - 16)))
-        pays.append(torch.sum(pad.reshape(B, n_loc, 2, 32).to(torch.int64)
-                              * w32, dim=-1))
-    cand_meta = out["cand_meta"] = torch.stack(metas, dim=-1)
-    cand_pay = out["cand_pay"] = torch.stack(pays, dim=-2)  # (B,n_loc,S,2)
-    # the fused host transfer is PACKED tight: RNTIs two per word, the
-    # format-0/1A discriminator bits as a bitmap, CCE powers as f16
-    # pairs.  `unpack_fused` reverses all of it.
-    m = n_loc * len(metas)
-    meta_flat = cand_meta.reshape(B, -1)                # (B, n_loc*S)
-    r_packed = _pack_pairs16(meta_flat & 0xFFFF)        # (B, mp/2)
-    bit0 = (meta_flat >> 16) & 1
-    mb = -(-m // 32) * 32
-    b0 = torch.nn.functional.pad(bit0, (0, mb - m))
-    b_packed = torch.sum(b0.reshape(B, -1, 32) * w32, dim=-1)
-    c_packed = _pack_pairs16(_f16_bits(cce_power))
-    parts = [r_packed, b_packed, c_packed]
-    if scalars is not None:
-        # frontend per-subframe scalars (cfi/snr/cfo/rsrp) fold into the
-        # SAME transfer
-        parts.append(_pack_pairs16(_f16_bits(scalars)))    # (B, 2)
-    parts.append(cand_pay.reshape(B, -1))                   # (B, m*2)
-    out["cand_fused"] = _u32_to_i32(torch.cat(parts, dim=1))
-    return out
+    rnti_{D} (B, n_loc); cand_meta (B, n_loc, S) [rnti | bit0 << 16];
+    cand_pay (B, n_loc, S, 2) (u32 payload words); cand_fused (B, W)
+    int32."""
+    return pdcch_tail.decode_tail(llr, cce_power, size_consts, n_loc, B,
+                                  scalars)
 
 
 def unpack_fused(fused: np.ndarray, n_loc: int, S: int, nof_cce: int,
@@ -205,8 +133,9 @@ def unpack_fused(fused: np.ndarray, n_loc: int, S: int, nof_cce: int,
 
 
 def _size_consts_of(st):
-    """Per payload size D: {aggregation level: (loc sel, llr gathers, de-RM
-    matmul)} — grouped so every gather in the batch has uniform shape."""
+    """Per payload size D: {aggregation level: (loc sel, flat llr gather,
+    de-RM matmul)} — grouped so every gather in the batch has uniform
+    shape — with the search's locations (`pdcch_tail.SizeConsts`)."""
     locs = st["locs"]
     lvl_of = np.array([l for (l, _) in locs])
     size_consts = {}
@@ -218,9 +147,9 @@ def _size_consts_of(st):
                 continue
             g = np.stack([m["gather"][i] for i in sel]).astype(np.int64)
             W = m["mats"][sel[0]]                                 # same for all
-            per_lvl[l] = (sel.astype(np.int64), g, W)
+            per_lvl[l] = (sel.astype(np.int64), g.reshape(-1), W)
         size_consts[D] = per_lvl
-    return size_consts
+    return pdcch_tail.SizeConsts(size_consts, locs)
 
 
 @functools.lru_cache(maxsize=8)
@@ -340,7 +269,7 @@ def _build_pipeline(cell: CellConfig, cfi: int):
                                       B)
         for k, v in tail.items():            # the reference's int32 words
             if k == "cand_pay":
-                v = _u32_to_i32(v)
+                v = pdcch_tail.u32_to_i32(v)
             elif not k.startswith("bits"):
                 v = v.to(torch.int32)
             out[k] = v

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from ltesniffer_tpu_torch.kernels import bcjr, mimo_eq, turbo, turbo_decode
-from ltesniffer_tpu_torch.kernels import viterbi
+from ltesniffer_tpu_torch.kernels import bcjr, mimo_eq, pdcch_tail, turbo
+from ltesniffer_tpu_torch.kernels import turbo_decode, viterbi
 from ltesniffer_tpu_torch.testing import mimo_grants
 
 torch.set_num_threads(1)
@@ -426,6 +426,166 @@ def test_mimo_eq_kernel_matches_plain(card, variant):
         assert ok, f"largest error {err}"
 
 
+# the search tail's shapes: the 20 MHz cell's unified search, and a 25-PRB
+# 4-port cell (7 payload sizes, 31 locations, 17 CCEs: odd counts)
+TAIL_CELLS = {"20mhz": (301, 100, 2), "25prb_4port": (7, 25, 4)}
+
+
+def _tail_inputs(name, card, B, half_integer=False, seed=0):
+    """(llr, cce_power, scalars, size_consts, n_loc) of one search call of
+    `name`'s unified search, seeded, on the card.  Half-integer LLRs make
+    every de-rate-match sum exact in any order."""
+    from ltesniffer_tpu_torch.phy.params import CellConfig
+    from ltesniffer_tpu_torch.sniffer import pdcch_rx
+    n_id, n_prb, ports = TAIL_CELLS[name]
+    st = pdcch_rx._static_maps(CellConfig(n_id_cell=n_id, n_prb=n_prb,
+                                          nof_ports=ports), 3)
+    sc = pdcch_rx._size_consts_of(st)
+    rng = np.random.default_rng(seed)
+    n_bits = 8 * (len(st["gather_idx"]) // 4)
+    if half_integer:
+        llr = rng.integers(-12, 13, (B, n_bits)) / 2.0
+    else:
+        llr = 3.0 * rng.standard_normal((B, n_bits))
+        llr[:, ::7] *= 0.0                   # +-0, as beyond a region
+    cce = np.abs(rng.standard_normal((B, st["nof_cce"])))
+    scal = rng.standard_normal((B, 4))
+    t = [torch.from_numpy(x.astype(np.float32)).to(card)
+         for x in (llr, cce, scal)]
+    return (*t, sc, len(st["locs"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TAIL_CELLS))
+def test_pdcch_derm_kernel_equals_plain(card, name):
+    """pdcch_derm against its plain version: bit for bit on the card where
+    every sum is exact (half-integer LLRs), within 1e-5 of the LLRs' peak
+    on the card otherwise (cuBLAS orders the einsum's sums by shape), and
+    bit for bit against the plain version on the host (the kernel sums in
+    MKL's order); one launch per call, views of one buffer."""
+    B = 64 if name == "20mhz" else 5
+    for half in (True, False):
+        llr, _, _, sc, n_loc = _tail_inputs(name, card, B, half)
+        n0 = pdcch_tail.LAUNCHES["pdcch_derm"]
+        got = pdcch_tail.derm_cuda(llr, sc, n_loc, B)
+        torch.cuda.synchronize()
+        assert pdcch_tail.LAUNCHES["pdcch_derm"] == n0 + 1
+        assert len({g.untyped_storage().data_ptr() for g in got}) == 1
+        want = pdcch_tail.derm_plain(llr, sc, n_loc, B)
+        host = pdcch_tail.derm_plain(llr.cpu(), sc, n_loc, B)
+        peak = float(llr.abs().max())
+        for g, w, h in zip(got, want, host):
+            assert g.shape == w.shape and g.is_contiguous()
+            g = g.cpu().numpy()
+            if half:
+                np.testing.assert_array_equal(g, w.cpu().numpy())
+            else:
+                np.testing.assert_allclose(g, w.cpu().numpy(), rtol=0,
+                                           atol=1e-5 * peak)
+            np.testing.assert_array_equal(g.view(np.int32),
+                                          h.numpy().view(np.int32))
+            assert not np.signbit(g[g == 0]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TAIL_CELLS))
+def test_pdcch_crc_pack_kernel_equals_plain(card, name):
+    """pdcch_crc_pack against its plain version on the same card bits:
+    cand_fused (with and without the scalars), the RNTIs, meta and payload
+    words word for word; without the optional outputs the same row; one
+    launch per call."""
+    B = 64 if name == "20mhz" else 5
+    llr, cce, scal, sc, n_loc = _tail_inputs(name, card, B, seed=1)
+    bits = viterbi.viterbi_decode_tb_multi(
+        pdcch_tail.derm_cuda(llr, sc, n_loc, B))
+    for s_ in (None, scal):
+        n0 = pdcch_tail.LAUNCHES["pdcch_crc_pack"]
+        got = pdcch_tail.crc_pack_cuda(bits, cce, n_loc, B, s_)
+        short = pdcch_tail.crc_pack_cuda(bits, cce, n_loc, B, s_,
+                                         outputs=False)
+        torch.cuda.synchronize()
+        assert pdcch_tail.LAUNCHES["pdcch_crc_pack"] == n0 + 2
+        want = pdcch_tail.crc_pack_plain(bits, cce, tuple(sc), n_loc, B, s_)
+        f = got["cand_fused"].cpu().numpy()
+        np.testing.assert_array_equal(f, want["cand_fused"].cpu().numpy())
+        np.testing.assert_array_equal(short["cand_fused"].cpu().numpy(), f)
+        np.testing.assert_array_equal(got["cand_meta"].cpu().numpy(),
+                                      want["cand_meta"].cpu().numpy())
+        np.testing.assert_array_equal(
+            got["cand_pay"].cpu().numpy().view(np.uint32),
+            want["cand_pay"].cpu().numpy())
+        for s, D in enumerate(sc):
+            np.testing.assert_array_equal(
+                got["rnti"][..., s].cpu().numpy(),
+                want[f"rnti_{D}"].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_tail_through_kernels_equals_plain(card):
+    """The whole tail on the card: three launches (pdcch_derm, the Viterbi,
+    pdcch_crc_pack) and no plain version; on exact-sum LLRs every output
+    equals the plain tail's on the card and on the host."""
+    from ltesniffer_tpu_torch.sniffer import pdcch_rx
+    B = 64
+    llr, cce, scal, sc, n_loc = _tail_inputs("20mhz", card, B, True, seed=2)
+    pdcch_tail.reset_launches()
+    v0 = viterbi.LAUNCHES["viterbi"]
+    got = pdcch_rx._candidate_decode_tail(llr, cce, sc, n_loc, B,
+                                          scalars=scal)
+    torch.cuda.synchronize()
+    assert pdcch_tail.LAUNCHES == {"pdcch_derm": 1, "pdcch_crc_pack": 1}
+    assert viterbi.LAUNCHES["viterbi"] == v0 + 1
+    assert pdcch_tail.PLAIN_CUDA == {"pdcch_derm": 0, "pdcch_crc_pack": 0}
+    want = pdcch_tail.decode_tail_plain(llr, cce, sc, n_loc, B, scal)
+    host = pdcch_tail.decode_tail_plain(llr.cpu(), cce.cpu(), sc, n_loc, B,
+                                        scal.cpu())
+    assert list(got) == list(want)
+    for k in got:
+        g = got[k].cpu().numpy()
+        for w in (want[k].cpu().numpy(), host[k].numpy()):
+            if k == "cand_pay":
+                g, w = g.view(np.uint32), w.astype(np.uint32)
+            np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_core_runs_the_tail_through_the_kernels(card, tmp_path):
+    """A core run on the card (the golden scenario): every search call's
+    tail is one pdcch_derm and one pdcch_crc_pack launch, no plain tail on
+    the card, and no constant uploaded again by a second run."""
+    from ltesniffer_tpu_torch.kernels import cplx
+    from ltesniffer_tpu_torch.sniffer import core, pdcch_rx
+    from ltesniffer_tpu_torch.testing import stream_cell
+    cell, stream, _ = stream_cell.golden_scenario()
+    calls = []
+    real = pdcch_rx._candidate_decode_tail
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    pdcch_rx._candidate_decode_tail = counted
+    try:
+        uploads = []
+        for k in range(2):
+            pdcch_tail.reset_launches()
+            calls.clear()
+            c = core.LTESnifferCore(core.SnifferConfig(
+                cell=cell, batch_size=8, device="cuda",
+                pcap_path=str(tmp_path / f"g{k}.pcap"), api_mode=0))
+            c.run_samples(stream)
+            c.close()
+            torch.cuda.synchronize()
+            uploads.append(cplx.UPLOADS["n"])
+            assert len(calls) > 0
+            assert pdcch_tail.LAUNCHES == {"pdcch_derm": len(calls),
+                                           "pdcch_crc_pack": len(calls)}
+            assert pdcch_tail.PLAIN_CUDA == {"pdcch_derm": 0,
+                                             "pdcch_crc_pack": 0}
+    finally:
+        pdcch_rx._candidate_decode_tail = real
+    assert uploads[1] == uploads[0]
+
+
 @pytest.fixture
 def two_cards():
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
@@ -506,3 +666,20 @@ def test_mimo_eq_on_second_card(two_cards):
     assert got.device == second
     err, ok = mimo_grants.max_err(got, want)
     assert ok, f"largest error {err}"
+
+
+@pytest.mark.cuda
+def test_pdcch_tail_on_second_card(two_cards):
+    """Both tail kernels on cuda:1 while cuda:0 is current: outputs on
+    cuda:1, equal to the plain versions there on exact-sum LLRs."""
+    first, second = two_cards
+    B = 8
+    llr, cce, scal, sc, n_loc = _tail_inputs("25prb_4port", second, B, True)
+    want = pdcch_tail.decode_tail_plain(llr, cce, sc, n_loc, B, scal)
+    with torch.cuda.device(first):
+        got = pdcch_tail.decode_tail(llr, cce, sc, n_loc, B, scal)
+        torch.cuda.synchronize(second)
+        assert torch.cuda.current_device() == first.index
+    assert got["cand_fused"].device == second
+    np.testing.assert_array_equal(got["cand_fused"].cpu().numpy(),
+                                  want["cand_fused"].cpu().numpy())
