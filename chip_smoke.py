@@ -14,11 +14,12 @@ exit) if any phase fails:
    (kernels/csrc/turbo_decode.cu, the main path's decoder), the per-pass
    BCJR kernel (kernels/csrc/bcjr.cu, the earlier design), the
    tail-biting Viterbi of the blind search and the MIB
-   (kernels/csrc/viterbi_tb.cu), the two-codeword grant's eq/demap
-   (kernels/csrc/mimo_eq_demap.cu), the search tail's de-rate-match and
-   CRC / packing kernels (kernels/csrc/pdcch_tail.cu) and the host
-   resolver (csrc/resolver.cpp); their build times and ptxas
-   registers/spills.
+   (kernels/csrc/viterbi_tb.cu: the plain entry and the search entry
+   with the de-rate-match folded in), the two-codeword grant's eq/demap
+   (kernels/csrc/mimo_eq_demap.cu), the search tail's packing kernel and
+   the earlier route's de-rate-match and CRC / packing kernels
+   (kernels/csrc/pdcch_tail.cu) and the host resolver
+   (csrc/resolver.cpp); their build times and ptxas registers/spills.
 2. kernels vs plain version: at the K values of the loaded cell's and the
    golden scenario's grants and K = 40 and 6144, n_iter 2 and 12, at the
    uplink's K values (the UL cell's and UL golden's K = 832 and the UCI
@@ -45,15 +46,15 @@ exit) if any phase fails:
    past it, which must be refused and launch nothing), the noiseless
    round trip of random messages through the port's encoder, and the
    loaded cell's real search over 64 subframes (`make_unified_search`:
-   cand_fused through the kernel equals cand_fused through the plain step
-   loop).  Times of one search call's six groups and of the MIB's call:
+   cand_fused through the search entry equals cand_fused through the
+   plain step loop on pdcch_derm's LLRs).  Times of one search call's six groups and of the MIB's call:
    kernel, plain, bound (and the bound at the add/compare issue rate),
    with the launch's shared memory per block and warps per SM; the
    search call's time beside the earlier one-warp-per-codeword design's
-   and required below it; ptxas registers and spills (none allowed).
-   From phase 3 on, every path (each of 3-8, the CLI's and the runner's
-   processes included) must launch the Viterbi kernel and run the plain
-   step loop on the card no time.
+   and required below it; ptxas registers and spills of both entries
+   (none allowed).  From phase 3 on, every path (each of 3-8, the CLI's
+   and the runner's processes included) must launch the Viterbi kernel
+   (either entry) and run the plain step loop on the card no time.
 2c. the two-codeword eq/demap kernel against its plain version (the
    torch chain) on the same card tensors, within rtol 1e-4 plus atol 5e-4
    of the peak (testing/mimo_grants.py): every variant (TM3 / TM4, 2 and
@@ -68,28 +69,35 @@ exit) if any phase fails:
    under torch.profiler (the kernel's must be 1) and host time per grant.
    Every path from phase 3 on must run the plain chain on the card no
    time; the launches of each path are reported.
-2d. the search tail's two kernels against their plain versions
-   (kernels/pdcch_tail.py) on the loaded cell's first 64-subframe chunk
-   (its real LLRs through the frontend and the search head on the card),
-   on seeded random LLRs at 100 PRB and at a 25-PRB 4-port cell (7
-   payload sizes, 31 locations, 17 CCEs: odd counts) and on exact-sum
-   (half-integer) LLRs: pdcch_derm within DERM_TOL of the LLRs' peak of
-   the plain version on the card (cuBLAS orders the einsum's sums by
-   shape; the floats that differ are counted, exact sums must be equal)
-   and counted against the plain version on the host (MKL's order, the
-   kernel's), no -0; pdcch_crc_pack on the same bits word for word (the
-   fused row with and without the scalars, RNTIs, meta and payload
-   words); the whole tail's differing cand_fused words counted against
-   the plain tail on the card and on the host (exact sums: none).  Times
-   of both kernels (CUDA events) beside their byte bounds and the plain
-   versions'; one tail call through the kernels, the plain chain and the
-   parent's route (the plain chain with its 30 per-call uploads): CUDA
-   kernels, copies (the kernels' must be 3 and 0) and host time.  From
+2d. the search tail (kernels/pdcch_tail.py) on the loaded cell's first
+   64-subframe chunk (its real LLRs through the frontend and the search
+   head on the card), on seeded random LLRs at 100 PRB and at a 25-PRB
+   4-port cell (7 payload sizes, 31 locations, 17 CCEs: odd counts) and
+   on exact-sum (half-integer) LLRs.  The two-launch route (the Viterbi's
+   search entry, pdcch_pack) against the earlier three-launch route
+   (pdcch_derm, the Viterbi's plain entry, pdcch_crc_pack) on the card:
+   every size's bits, the RNTIs, meta and payload words and cand_fused
+   word for word, one launch of each kernel; pdcch_pack against its plain
+   version on the same words word for word; cand_fused against the plain
+   tail on the host (0 words may differ) and on the card (counted; exact
+   sums: none).  The yardsticks against their plain versions as before:
+   pdcch_derm within DERM_TOL of the LLRs' peak of the plain version on
+   the card (cuBLAS orders the einsum's sums by shape; the floats that
+   differ are counted, exact sums must be equal) and counted against the
+   plain version on the host (MKL's order, the kernel's), no -0;
+   pdcch_crc_pack on the same bits word for word.  Times, in turns, by
+   CUDA events and by the profiler's device time, beside their bounds:
+   the search call (the search entry against the earlier route's
+   pdcch_derm plus the plain entry), the pack (pdcch_pack against
+   pdcch_crc_pack), the plain versions; one tail call through the two
+   kernels, the three-launch route and the plain chain: CUDA kernels,
+   copies (the two-launch route's must be 2 and 0) and host time.  From
    phase 3 on every path (the CLI's and the runner's processes included)
-   must launch each tail kernel once per search tail and run no plain
-   tail on the card; phase 4 prints the constant cache after each of its
-   three passes and fails if the third uploads anything; the profiled
-   passes fail unless the tail makes 3 launches and 0 copies a call.
+   must launch the search entry and pdcch_pack once per search tail,
+   pdcch_derm and pdcch_crc_pack no time, and run no plain tail on the
+   card; phase 4 prints the constant cache after each of its three
+   passes and fails if the third uploads anything; the profiled passes
+   fail unless the tail makes 2 launches and 0 copies a call.
 3. golden: the golden scenario (tests/golden/dl_mode.pcap), built by the
    port's own generator, run on the card; the pcap's sha256 must equal.
 4. loaded cell at full width (20 MHz, 512 subframes, batch 256, with its
@@ -177,10 +185,13 @@ exit) if any phase fails:
        -n 2 --overlap 200` in a subprocess on a file of the stream (one
        OS process per block, child k on cuda:{k % cards}): exit 0, merged
        pcap records equal 8b's; the wall time with start-up.
-9. the `kernels` JSON line (`viterbi_tb`'s, `mimo_eq_demap`'s,
-   `pdcch_derm`'s and `pdcch_crc_pack`'s entries carry the launches of
-   every path, `mimo_eq_demap`'s the launch chains of the profiled
-   passes, `pdcch_derm`'s phase 2d's cases, the tail call's steps and the
+9. the `kernels` JSON line (`viterbi_tb`'s times are the MIB call's,
+   the shape its main-path launches run, with the search call's shape
+   under `search_shape`; `viterbi_tb`'s, `viterbi_search`'s,
+   `mimo_eq_demap`'s, `pdcch_pack`'s, `pdcch_derm`'s and
+   `pdcch_crc_pack`'s entries carry the launches of every path,
+   `mimo_eq_demap`'s the launch chains of the profiled passes,
+   `viterbi_search`'s phase 2d's cases, the tail call's steps and the
    constant cache of phase 4's passes), then the result line.
 
 Imports torch, numpy, the standard library and the port only — no JAX.
@@ -243,6 +254,13 @@ MIMO_EQ_REPLACES = "ltesniffer_tpu/sniffer/pdsch_rx.py:130"
 # (:89-149) of _candidate_decode_tail (:71), inside run_from_grids' jit
 DERM_REPLACES = "ltesniffer_tpu/sniffer/pdcch_rx.py:81"
 PACK_REPLACES = "ltesniffer_tpu/sniffer/pdcch_rx.py:89"
+# the search entry replaces the de-rate-match with the Viterbi
+SEARCH_REPLACES = "ltesniffer_tpu/sniffer/pdcch_rx.py:81"
+# the earlier route's times at one search call of the loaded cell: the
+# Viterbi's plain entry, pdcch_derm (CUDA events) and pdcch_crc_pack
+# (device time a launch): NVIDIA H100 80GB HBM3, 700 W (PERF.md, section 6)
+EARLIER_VITERBI_MS, EARLIER_DERM_MS, EARLIER_PACK_DEVICE_MS = \
+    0.1844, 0.0676, 0.016
 # pdcch_derm against cuBLAS's einsum: a sum of at most 7 repetitions in
 # another order moves by at most 2 * 6 * 2^-24 * 7 * peak = 5.0e-6 * peak
 DERM_TOL = 1e-5
@@ -563,7 +581,7 @@ def check_viterbi(device, loaded_stream, rng) -> dict:
     search call's shape."""
     import numpy as np
     import torch
-    from ltesniffer_tpu_torch.kernels import viterbi
+    from ltesniffer_tpu_torch.kernels import pdcch_tail, viterbi
     from ltesniffer_tpu_torch.sniffer import frontend, pdcch_rx
     from ltesniffer_tpu_torch.testing import loaded_cell
     cell = loaded_cell.CELL
@@ -623,19 +641,27 @@ def check_viterbi(device, loaded_stream, rng) -> dict:
                   fe["cfi"] - 1, fe["scalars"])["cand_fused"]
         return out.cpu().numpy()
     got = search()
-    kernel = viterbi.viterbi_decode_tb_multi
+    # the plain step loop on pdcch_derm's LLRs, in the tail's place
+    saved = viterbi.viterbi_decode_tb_multi, pdcch_tail.decode_tail_cuda
     viterbi.viterbi_decode_tb_multi = viterbi.viterbi_decode_tb_multi_plain
+    pdcch_tail.decode_tail_cuda = \
+        lambda *a, **k: pdcch_tail.decode_tail_three(*a[:6])
+    p0 = viterbi.PLAIN_CUDA["viterbi"]
     try:
         want = search()
     finally:
-        viterbi.viterbi_decode_tb_multi = kernel
+        viterbi.viterbi_decode_tb_multi, pdcch_tail.decode_tail_cuda = saved
+    if viterbi.PLAIN_CUDA["viterbi"] != p0 + 1:
+        raise AssertionError("the real search's yardstick did not run the "
+                             "plain step loop")
     if not np.array_equal(got, want):
         raise AssertionError(f"real search: {int((got != want).sum())} "
                              "cand_fused words differ between the kernel "
                              "and the plain step loop")
     log(f"  the loaded cell's search over {chunk} subframes: "
-        f"cand_fused {got.shape} through the kernel equals it through the "
-        "plain step loop, word for word")
+        f"cand_fused {got.shape} through the kernel's search entry equals "
+        "it through the plain step loop on pdcch_derm's LLRs, word for "
+        "word")
     # times at the main shape (one search call's six groups) and at the
     # MIB's, in turns
     out = time_viterbi(main, shapes)
@@ -668,8 +694,13 @@ def report_viterbi(tv: dict, card: str):
     fails on spills or on a search call not below the earlier design's
     time.  Adds `registers` and `spill_bytes` to tv."""
     from ltesniffer_tpu_torch.kernels import nvcc_build
-    (_, regs, st, ld), = nvcc_build.ptxas_report("viterbi_tb")
-    tv.update(registers=regs, spill_bytes=st + ld)
+    rep = {fn: (r, st_, ld_) for fn, r, st_, ld_ in
+           nvcc_build.ptxas_report("viterbi_tb")}
+    (regs, st, ld), = [v for fn, v in rep.items() if "viterbi_tb_kernel" in fn]
+    (s_regs, s_st, s_ld), = [v for fn, v in rep.items()
+                             if "viterbi_search_kernel" in fn]
+    tv.update(registers=regs, spill_bytes=st + ld,
+              search_registers=s_regs, search_spill_bytes=s_st + s_ld)
     for what, t, shp in (("one search call", tv, tv["shapes"]),
                          ("the MIB", tv["mib"], [(12, 40)])):
         g = ", ".join(f"{n}x{d}" for n, d in shp)
@@ -689,7 +720,9 @@ def report_viterbi(tv: dict, card: str):
         f"{VITERBI_WARP_DESIGN_MS / tv['ms']:.2f}x; ptxas {regs} registers, "
         f"{st} / {ld} bytes spill stores / loads; no PyTorch call computes "
         "a Viterbi decode, so there is no library time")
-    if st or ld:
+    log(f"  the search entry: ptxas {s_regs} registers, {s_st} / {s_ld} "
+        "bytes spill stores / loads")
+    if st or ld or s_st or s_ld:
         raise AssertionError("the Viterbi kernel spills registers")
     if tv["ms"] >= VITERBI_WARP_DESIGN_MS:
         raise AssertionError(
@@ -959,9 +992,9 @@ def loaded_tail_args(device, loaded_stream) -> tuple:
     seen = {}
     real = pdcch_rx._candidate_decode_tail
 
-    def spy(*a, scalars=None):
-        seen["args"] = (*a[:3], a[3], a[4], scalars)
-        return real(*a, scalars=scalars)
+    def spy(*a, **k):
+        seen["args"] = (*a[:5], k.get("scalars"))
+        return real(*a, **k)
     pdcch_rx._candidate_decode_tail = spy
     try:
         run(fe["grids"], fe["h"], fe["noise_var"], fe["snr_db"], sf,
@@ -1048,53 +1081,111 @@ def pack_held(name: str, a) -> list:
     return bits
 
 
-def tail_fused_diff(a) -> tuple:
-    """cand_fused words through the kernels that differ from the plain tail
-    on the card and from the plain tail on the host."""
-    from ltesniffer_tpu_torch.kernels import pdcch_tail
+def route_held(name: str, a) -> dict:
+    """The two-launch route (the Viterbi's search entry, pdcch_pack) on one
+    input: one launch of each; against the three-launch route on the card
+    every output (every size's bits, RNTIs, meta and payload words,
+    cand_fused; with and without the scalars) word for word, and the
+    search entry's words against compact_plain of that route's bits;
+    pdcch_pack against pack_plain on the same words; cand_fused against
+    the plain tail on the host (must be equal) and on the card
+    (counted)."""
+    import numpy as np
+    import torch
+    from ltesniffer_tpu_torch.kernels import pdcch_tail, viterbi
     llr, cce, scal, sc, n_loc, B = a
+    n0 = (viterbi.LAUNCHES["viterbi_search"],
+          pdcch_tail.LAUNCHES["pdcch_pack"])
     got = pdcch_tail.decode_tail(llr, cce, sc, n_loc, B, scal)
-    got = got["cand_fused"].cpu().numpy()
+    torch.cuda.synchronize()
+    if (viterbi.LAUNCHES["viterbi_search"],
+            pdcch_tail.LAUNCHES["pdcch_pack"]) != (n0[0] + 1, n0[1] + 1):
+        raise AssertionError(f"{name}: the tail did not launch the search "
+                             "entry and pdcch_pack once each")
+    n_words = 0
+    for s_ in (scal, None):
+        g = got if s_ is scal else pdcch_tail.decode_tail(
+            llr, cce, sc, n_loc, B, s_)
+        three = pdcch_tail.decode_tail_three(llr, cce, sc, n_loc, B, s_)
+        if list(g) != list(three):
+            raise AssertionError(f"{name}: the routes return {list(g)} and "
+                                 f"{list(three)}")
+        for k in three:
+            x, y = g[k].cpu().numpy(), three[k].cpu().numpy()
+            if x.shape != y.shape or not np.array_equal(x, y):
+                raise AssertionError(
+                    f"{name}: {k}: {int((x != y).sum())} words of the "
+                    "two-launch route differ from the three-launch route's")
+            n_words += x.size
+    comp, _ = viterbi.viterbi_search_cuda(llr, sc, n_loc, B)
+    bits = [three[f"bits_{D}"].reshape(B * n_loc, D) for D in sc]
+    if not torch.equal(comp, pdcch_tail.compact_plain(bits)):
+        raise AssertionError(f"{name}: the search entry's words differ "
+                             "from compact_plain of the same bits")
+    for s_ in (None, scal):
+        p = pdcch_tail.pack_cuda(comp, cce, n_loc, B, s_, outputs=True)
+        w = pdcch_tail.pack_plain(comp, cce, n_loc, B, s_)
+        if any(not torch.equal(p[k], w[k]) for k in w):
+            raise AssertionError(f"{name}: pdcch_pack differs from its "
+                                 "plain version")
+    fused = got["cand_fused"].cpu().numpy()
     card = pdcch_tail.decode_tail_plain(llr, cce, sc, n_loc, B, scal)
     host = pdcch_tail.decode_tail_plain(llr.cpu(), cce.cpu(), sc, n_loc, B,
                                         scal.cpu())
-    return (int((got != card["cand_fused"].cpu().numpy()).sum()),
-            int((got != host["cand_fused"].numpy()).sum()), got.size)
+    r = dict(words=n_words, fused_words=int(fused.size),
+             fused_diff=int((fused != card["cand_fused"].cpu().numpy())
+                            .sum()),
+             fused_host_diff=int((fused != host["cand_fused"].numpy())
+                                 .sum()))
+    log(f"  the two-launch route, {name}: every size's bits, the RNTIs, "
+        f"meta and payload words and cand_fused (with and without the "
+        f"scalars; {n_words} words) equal the three-launch route's; the "
+        f"search entry's words equal compact_plain's, pdcch_pack's equal "
+        f"pack_plain's; cand_fused: {r['fused_host_diff']} of "
+        f"{r['fused_words']} words differ from the plain tail on the host, "
+        f"{r['fused_diff']} from the plain tail on the card")
+    if r["fused_host_diff"]:
+        raise AssertionError(f"{name}: cand_fused differs from the plain "
+                             "tail on the host")
+    return r
 
 
-class parent_tail:
-    """The tail as the parent ran it on the card: the plain chain, with the
-    flat gather index of each (size, level) and the CRC weights of each
-    size handed to `const` as new arrays each call (24 + 6 uploads at the
-    20 MHz cell)."""
-
-    def __init__(self, a):
-        self.a = a
-
-    def __call__(self):
-        import numpy as np
-        from ltesniffer_tpu_torch.kernels import pdcch_tail
-        from ltesniffer_tpu_torch.phy import crc
-        llr, cce, scal, sc, n_loc, B = self.a
-        fresh = pdcch_tail.SizeConsts(
-            {D: {l: (sel, np.array(g), W) for l, (sel, g, W) in per.items()}
-             for D, per in sc.items()}, sc.locs)
-        cached = crc._msb_weights
-        crc._msb_weights = cached.__wrapped__
-        try:
-            return pdcch_tail.decode_tail_plain(llr, cce, fresh, n_loc, B,
-                                                scal)
-        finally:
-            crc._msb_weights = cached
+def device_ms(step, names: tuple, n: int = 20) -> tuple:
+    """(device ms a call, kernel records a call) of the kernels whose names
+    hold one of `names` (each launched once a call), over n calls of
+    `step` under torch.profiler (warmed first): the sum over `names` of
+    each kernel's mean time a record, since a short profile may lose a
+    record (PERF.md, section 6); (None, 0) where the profiler saw
+    none of one of them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    t = {x: [] for x in names}
+    for e in p.events():
+        for x in names:
+            if e.device_type == DeviceType.CUDA and x in e.name:
+                t[x].append((e.time_range.end - e.time_range.start) / 1e3)
+    if not all(t.values()):
+        return None, 0
+    return (sum(sum(v) / len(v) for v in t.values()),
+            sum(len(v) for v in t.values()) / n)
 
 
 def check_pdcch_tail(device, loaded_stream, rng, card: str) -> dict:
-    """Phase 2d: both tail kernels against their plain versions on the
-    loaded cell's first chunk (its real LLRs), on seeded random LLRs at
-    100 PRB and at a 25-PRB 4-port cell (7 sizes, 31 locations, 17 CCEs:
-    odd counts), and on exact-sum LLRs; their times beside their bounds;
-    one tail call's CUDA kernels, copies and host time through the
-    kernels, the plain chain and the parent's route."""
+    """Phase 2d: the two-launch route against the three-launch route and
+    the plain tail, and the yardsticks against their plain versions, on
+    the loaded cell's first chunk (its real LLRs), on seeded random LLRs
+    at 100 PRB and at a 25-PRB 4-port cell (7 sizes, 31 locations, 17
+    CCEs: odd counts), and on exact-sum LLRs; the kernels' times beside
+    their bounds; one tail call's CUDA kernels, copies and host time
+    through each route."""
     from ltesniffer_tpu_torch.kernels import pdcch_tail, viterbi
     from ltesniffer_tpu_torch.phy.params import CellConfig
     from ltesniffer_tpu_torch.testing import loaded_cell
@@ -1107,90 +1198,149 @@ def check_pdcch_tail(device, loaded_stream, rng, card: str) -> dict:
     cases["random LLRs, 25 PRB, 4 ports"] = tail_args(small, device, 5, rng)
     cases["exact-sum LLRs, 100 PRB"] = tail_args(loaded_cell.CELL, device,
                                                  chunk, rng, True)
+    route_r = {k: route_held(k, a) for k, a in cases.items()}
+    if route_r["exact-sum LLRs, 100 PRB"]["fused_diff"]:
+        raise AssertionError("the tail through the kernels differs from the "
+                             "plain tail on exact sums")
     derm_r = {k: derm_held(k, a) for k, a in cases.items()}
     if derm_r["exact-sum LLRs, 100 PRB"]["diff"]:
         raise AssertionError("pdcch_derm differs from the plain version on "
                              "exact sums")
     for k, a in cases.items():
         pack_held(k, a)
-        d_card, d_host, n_w = tail_fused_diff(a)
-        log(f"  the whole tail, {k}: {d_card} of {n_w} cand_fused words "
-            f"through the kernels differ from the plain tail on the card, "
-            f"{d_host} from the plain tail on the host")
-        derm_r[k].update(fused_diff=d_card, fused_host_diff=d_host)
-    if derm_r["exact-sum LLRs, 100 PRB"]["fused_diff"]:
-        raise AssertionError("the tail through the kernels differs from the "
-                             "plain tail on exact sums")
     # times at the loaded chunk's shape, in turns
     a = cases["the loaded cell's first chunk"]
     llr, cce, scal, sc, n_loc, B = a
     ds, locs = tuple(sc), sc.locs
+    comp, _ = viterbi.viterbi_search_cuda(llr, sc, n_loc, B)
     groups = pdcch_tail.derm_cuda(llr, sc, n_loc, B)
     bits = viterbi.viterbi_decode_tb_multi(groups)
-    t = {}
-    t["derm"] = [time_cuda(lambda: pdcch_tail.derm_cuda(llr, sc, n_loc, B),
-                           n=50)]
+
+    def search():
+        return viterbi.viterbi_search_cuda(llr, sc, n_loc, B)
+
+    def earlier():
+        return viterbi.viterbi_tb_cuda(pdcch_tail.derm_cuda(llr, sc, n_loc,
+                                                            B))
+
+    def derm():
+        return pdcch_tail.derm_cuda(llr, sc, n_loc, B)
+
+    def plain_entry():
+        return viterbi.viterbi_tb_cuda(groups)
+
+    def pack():
+        return pdcch_tail.pack_cuda(comp, cce, n_loc, B, scal)
+
+    def crc_pack():
+        return pdcch_tail.crc_pack_cuda(bits, cce, n_loc, B, scal,
+                                        outputs=False)
+    t = {k: [] for k in ("search", "earlier", "derm", "plain_entry", "pack",
+                         "crc_pack")}
+    fns = dict(search=search, earlier=earlier, derm=derm,
+               plain_entry=plain_entry, pack=pack, crc_pack=crc_pack)
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            t[k].append(time_cuda(fns[k], n=50))
+    t["search_plain"] = time_cuda(
+        lambda: pdcch_tail.search_plain(llr, sc, n_loc, B), n=3)
+    t["pack_plain"] = time_cuda(
+        lambda: pdcch_tail.pack_plain(comp, cce, n_loc, B, scal), n=10)
     t["derm_plain"] = time_cuda(
         lambda: pdcch_tail.derm_plain(llr, sc, n_loc, B), n=10)
-    t["derm"].append(time_cuda(
-        lambda: pdcch_tail.derm_cuda(llr, sc, n_loc, B), n=50))
-    t["pack"] = [time_cuda(
-        lambda: pdcch_tail.crc_pack_cuda(bits, cce, n_loc, B, scal,
-                                         outputs=False), n=50)]
-    t["pack_plain"] = time_cuda(
+    t["crc_pack_plain"] = time_cuda(
         lambda: pdcch_tail.crc_pack_plain(bits, cce, ds, n_loc, B, scal),
         n=10)
-    t["pack"].append(time_cuda(
-        lambda: pdcch_tail.crc_pack_cuda(bits, cce, n_loc, B, scal,
-                                         outputs=False), n=50))
+    dev = dict(search=device_ms(search, ("viterbi_search_kernel",)),
+               earlier=device_ms(earlier, ("viterbi_tb_kernel",
+                                           "pdcch_derm_kernel")),
+               derm=device_ms(derm, ("pdcch_derm_kernel",)),
+               plain_entry=device_ms(plain_entry, ("viterbi_tb_kernel",)),
+               pack=device_ms(pack, ("pdcch_pack_kernel",)),
+               crc_pack=device_ms(crc_pack, ("pdcch_crc_pack_kernel",)))
 
     def kernel_tail():
-        return pdcch_tail.decode_tail(llr, cce, sc, n_loc, B, scal)
+        return pdcch_tail.decode_tail(llr, cce, sc, n_loc, B, scal,
+                                      full=False)
+
+    def three_tail():
+        return pdcch_tail.decode_tail_three(llr, cce, sc, n_loc, B, scal)
 
     def plain_tail():
         return pdcch_tail.decode_tail_plain(llr, cce, sc, n_loc, B, scal)
-    parent = parent_tail(a)
     t["tail"] = [time_cuda(kernel_tail, n=20)]
+    t["tail_three"] = [time_cuda(three_tail, n=20)]
     t["tail_plain"] = time_cuda(plain_tail, n=5)
+    t["tail_three"].append(time_cuda(three_tail, n=20))
     t["tail"].append(time_cuda(kernel_tail, n=20))
     n_bits = int(llr.shape[1])
-    b_d = pdcch_tail.derm_bytes(B, n_bits, ds, n_loc)
-    o_d = pdcch_tail.derm_ops(B, ds, locs)
-    b_p = pdcch_tail.pack_bytes(B, ds, n_loc, int(cce.shape[1]), True)
-    o_p = pdcch_tail.pack_ops(B, ds, n_loc)
+    nof_cce = int(cce.shape[1])
 
     def bound(nbytes, nops):
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
+    work = {
+        "viterbi_search": (pdcch_tail.search_bytes(B, n_bits, ds, n_loc),
+                           pdcch_tail.search_ops(B, ds, locs), "search",
+                           t["search_plain"]),
+        "pdcch_pack": (pdcch_tail.words_bytes(B, len(ds), n_loc, nof_cce,
+                                              True),
+                       pdcch_tail.words_ops(B, len(ds), n_loc), "pack",
+                       t["pack_plain"]),
+        "pdcch_derm": (pdcch_tail.derm_bytes(B, n_bits, ds, n_loc),
+                       pdcch_tail.derm_ops(B, ds, locs), "derm",
+                       t["derm_plain"]),
+        "pdcch_crc_pack": (pdcch_tail.pack_bytes(B, ds, n_loc, nof_cce,
+                                                 True),
+                           pdcch_tail.pack_ops(B, ds, n_loc), "crc_pack",
+                           t["crc_pack_plain"])}
     out = {}
-    for key, nb, no, plain in (("pdcch_derm", b_d, o_d, t["derm_plain"]),
-                               ("pdcch_crc_pack", b_p, o_p,
-                                t["pack_plain"])):
-        turns = t["derm" if key == "pdcch_derm" else "pack"]
+    for key, (nb, no, tk, plain) in work.items():
+        turns = t[tk]
         bd, by = bound(nb, no)
+        d_ms, d_n = dev[tk]
         out[key] = dict(ms=min(turns), ms_turns=turns, plain_ms=plain,
-                        bound_ms=bd, bound_by=by, bytes=nb, ops=no)
+                        bound_ms=bd, bound_by=by, bytes=nb, ops=no,
+                        device_ms=d_ms, kernels_per_call=d_n)
         log(f"  {key} at the loaded chunk's shape (B {B}, n_loc {n_loc}, D "
             f"{list(ds)}; {nb} bytes, {no} operations) on {card}: kernel "
             f"{min(turns):.4f} ms (turns {turns[0]:.4f}, {turns[1]:.4f}; "
-            f"CUDA events over back-to-back calls of the wrapper); plain "
-            f"version {plain:.4f} ms; bound {bd:.6f} ms ({by}: max(bytes / "
-            f"3.35 TB/s, operations / 67 T/s)), {100 * bd / min(turns):.1f} "
-            "% of it; no PyTorch call computes this function, so there is "
-            "no library time")
-    pk, pp, pa = (profile_step(kernel_tail), profile_step(plain_tail),
-                  profile_step(parent))
-    hk1, hp1, ha1 = (host_step_ms(kernel_tail, 20), host_step_ms(plain_tail,
-                     5), host_step_ms(parent, 5))
-    ha2, hp2, hk2 = (host_step_ms(parent, 5), host_step_ms(plain_tail, 5),
-                     host_step_ms(kernel_tail, 20))
+            f"CUDA events over back-to-back calls of the wrapper), device "
+            + ("not measured" if d_ms is None else f"{d_ms:.4f} ms a call "
+               f"({d_n:g} kernels a call; profiler)") +
+            f"; plain version {plain:.4f} ms; bound {bd:.6f} ms ({by}: "
+            f"max(bytes / 3.35 TB/s, operations / 67 T/s)), "
+            f"{100 * bd / min(turns):.1f} % of it; no PyTorch call computes "
+            "this function, so there is no library time")
+    e_ms = [x + y for x, y in zip(t["derm"], t["plain_entry"])]
+    log(f"  the search call: the search entry {min(t['search']):.4f} ms "
+        f"(turns {t['search'][0]:.4f}, {t['search'][1]:.4f}) against the "
+        f"earlier route's pdcch_derm then the plain entry "
+        f"{min(t['earlier']):.4f} ms (turns {t['earlier'][0]:.4f}, "
+        f"{t['earlier'][1]:.4f}; apart {min(t['derm']):.4f} + "
+        f"{min(t['plain_entry']):.4f} = {min(e_ms):.4f} ms) in this run "
+        f"(earlier records on an H100 80GB HBM3 at 700 W: "
+        f"{EARLIER_DERM_MS} + {EARLIER_VITERBI_MS} ms); device time "
+        f"{dev['search'][0]} against {dev['earlier'][0]} ms a call")
+    log(f"  the pack: pdcch_pack {min(t['pack']):.4f} ms by CUDA events, "
+        f"{dev['pack'][0]} ms device time, against pdcch_crc_pack "
+        f"{min(t['crc_pack']):.4f} ms, {dev['crc_pack'][0]} ms device time "
+        f"in this run (earlier record: {EARLIER_PACK_DEVICE_MS} ms device "
+        "time)")
+    pk, p3, pp = (profile_step(kernel_tail), profile_step(three_tail),
+                  profile_step(plain_tail))
+    hk1, h31, hp1 = (host_step_ms(kernel_tail, 20), host_step_ms(three_tail,
+                     20), host_step_ms(plain_tail, 5))
+    hp2, h32, hk2 = (host_step_ms(plain_tail, 5), host_step_ms(three_tail,
+                     20), host_step_ms(kernel_tail, 20))
     log(f"  one tail call (loaded chunk) on {card}: CUDA events "
-        f"{min(t['tail']):.4f} ms through the kernels (turns "
-        f"{t['tail'][0]:.4f}, {t['tail'][1]:.4f}), {t['tail_plain']:.4f} ms "
-        f"through the plain chain")
-    for what, p_, h in (("kernels", pk, (hk1, hk2)),
-                        ("plain chain", pp, (hp1, hp2)),
-                        ("parent's route", pa, (ha1, ha2))):
+        f"{min(t['tail']):.4f} ms through the two kernels (turns "
+        f"{t['tail'][0]:.4f}, {t['tail'][1]:.4f}), "
+        f"{min(t['tail_three']):.4f} ms through the three-launch route, "
+        f"{t['tail_plain']:.4f} ms through the plain chain")
+    for what, p_, h in (("two-launch route", pk, (hk1, hk2)),
+                        ("three-launch route", p3, (h31, h32)),
+                        ("plain chain", pp, (hp1, hp2))):
         log(f"  one tail call through the {what}: kernel launches "
             f"{p_['launches']} and memory copies {p_['copies']} by the host;"
             f" the device's records: CUDA kernels {p_['kernels']}, "
@@ -1201,17 +1351,21 @@ def check_pdcch_tail(device, loaded_stream, rng, card: str) -> dict:
     if pk["launches"] + pp["launches"] == 0:
         log("  launches per tail call: not measured (the profiler saw "
             "none)")
-    elif pk["launches"] != 3 or pk["copies"] != 0:
+    elif pk["launches"] != 2 or pk["copies"] != 0:
         raise AssertionError(f"the tail through the kernels made "
                              f"{pk['launches']} launches and {pk['copies']} "
-                             "memory copies, not 3 and 0")
+                             "memory copies, not 2 and 0")
     derm_err = max(r["err"] for r in derm_r.values())
     out["pdcch_derm"].update(max_abs_err=derm_err, cases=derm_r)
-    out["pdcch_crc_pack"].update(max_abs_err=0)
-    out["tail"] = dict(ms_turns=t["tail"], plain_ms=t["tail_plain"],
-                       step={"kernels": pk, "plain": pp, "parent": pa},
-                       host_ms={"kernels": [hk1, hk2], "plain": [hp1, hp2],
-                                "parent": [ha1, ha2]},
+    for k in ("pdcch_crc_pack", "pdcch_pack", "viterbi_search"):
+        out[k].update(max_abs_err=0)
+    out["viterbi_search"].update(cases=route_r)
+    out["tail"] = dict(ms_turns=t["tail"], three_ms_turns=t["tail_three"],
+                       plain_ms=t["tail_plain"],
+                       step={"kernels": pk, "three": p3, "plain": pp},
+                       host_ms={"kernels": [hk1, hk2], "three": [h31, h32],
+                                "plain": [hp1, hp2]},
+                       earlier_ms_turns=t["earlier"],
                        shape=dict(B=B, n_loc=n_loc, D=list(ds),
                                   n_bits=n_bits))
     return out
@@ -1241,44 +1395,59 @@ def reset_counts():
 
 
 EQ_LAUNCHES = {}     # path -> mimo_eq_demap launches (viterbi_count)
-TAIL_LAUNCHES = {}   # path -> [search tails, pdcch_derm, pdcch_crc_pack]
+TAIL_KERNELS = ("viterbi_search", "pdcch_pack", "pdcch_derm",
+                "pdcch_crc_pack")
+TAIL_LAUNCHES = {}   # path -> {"calls": search tails, kernel: launches}
+VIT_LAUNCHES = {}    # path -> the Viterbi's plain entry's launches
 
 
-def tail_check(path: str, calls, derm: int, pack: int, plain: int):
-    """Fails unless the path's search tails each launched pdcch_derm and
-    pdcch_crc_pack once (calls None: not counted, in a child process)
-    and ran no plain tail on the card."""
+def tail_counts() -> dict:
+    """The tail kernels' launches since the last reset_counts()."""
+    from ltesniffer_tpu_torch.kernels import pdcch_tail, viterbi
+    return dict(viterbi_search=viterbi.LAUNCHES["viterbi_search"],
+                **{k: pdcch_tail.LAUNCHES[k] for k in TAIL_KERNELS[1:]})
+
+
+def tail_check(path: str, calls, counts: dict, plain: int):
+    """Fails unless the path's search tails each launched the Viterbi's
+    search entry and pdcch_pack once and neither pdcch_derm nor
+    pdcch_crc_pack (calls None: not counted, in a child process), and ran
+    no plain tail on the card.  Records the counts in TAIL_LAUNCHES."""
+    TAIL_LAUNCHES[path] = dict(calls=calls, **counts)
     log(f"  {path}: search tails {'n/a' if calls is None else calls}, "
-        f"pdcch_derm launches {derm}, pdcch_crc_pack launches {pack}, plain"
-        f" tails on the card {plain}")
+        + ", ".join(f"{k} launches {counts[k]}" for k in TAIL_KERNELS) +
+        f", plain tails on the card {plain}")
     if plain != 0:
         raise AssertionError(f"{path} ran the plain search tail on the card "
                              f"{plain} times")
-    if derm <= 0 or derm != pack or (calls is not None and derm != calls):
-        raise AssertionError(f"{path}: {derm} pdcch_derm and {pack} "
-                             f"pdcch_crc_pack launches for {calls} search "
-                             "tails, not one each")
+    n = counts["viterbi_search"]
+    if n <= 0 or counts["pdcch_pack"] != n or \
+            (calls is not None and n != calls) or counts["pdcch_derm"] or \
+            counts["pdcch_crc_pack"]:
+        raise AssertionError(f"{path}: {counts} launches for {calls} search "
+                             "tails, not one search entry and one "
+                             "pdcch_pack each")
 
 
 def viterbi_count(path: str) -> int:
-    """The Viterbi kernel's launches since the last reset_counts(); fails
-    if the path launched none or ran the plain step loop on the card.
-    Also records the path's eq/demap kernel launches in EQ_LAUNCHES and
-    fails if it ran the plain eq/demap chain on the card, and records its
-    search tails and tail kernel launches in TAIL_LAUNCHES and fails
-    unless each tail launched both tail kernels once (`tail_check`)."""
+    """The Viterbi kernel's launches (both entries) since the last
+    reset_counts(); fails if the path launched none or ran the plain step
+    loop on the card.  Also records the path's eq/demap kernel launches in
+    EQ_LAUNCHES and fails if it ran the plain eq/demap chain on the card,
+    and checks its search tails (`tail_check`)."""
     from ltesniffer_tpu_torch.kernels import mimo_eq, pdcch_tail, viterbi
-    n = viterbi.LAUNCHES["viterbi"]
+    n_tb, n_s = viterbi.LAUNCHES["viterbi"], viterbi.LAUNCHES["viterbi_search"]
+    n = n_tb + n_s
     p = viterbi.PLAIN_CUDA["viterbi"]
     EQ_LAUNCHES[path] = mimo_eq.LAUNCHES["mimo_eq_demap"]
-    TAIL_LAUNCHES[path] = [TAIL_CALLS["n"], pdcch_tail.LAUNCHES["pdcch_derm"],
-                           pdcch_tail.LAUNCHES["pdcch_crc_pack"]]
-    tail_check(path, *TAIL_LAUNCHES[path],
+    VIT_LAUNCHES[path] = n_tb
+    tail_check(path, TAIL_CALLS["n"], tail_counts(),
                sum(pdcch_tail.PLAIN_CUDA.values()))
     p_eq = mimo_eq.PLAIN_CUDA["mimo_eq_demap"]
-    log(f"  {path}: viterbi_tb launches {n}, plain Viterbi step loops on "
-        f"the card {p}; mimo_eq_demap launches {EQ_LAUNCHES[path]}, plain "
-        f"eq/demap chains on the card {p_eq}")
+    log(f"  {path}: viterbi_tb launches {n_tb} (plain entry) + {n_s} "
+        f"(search entry), plain Viterbi step loops on the card {p}; "
+        f"mimo_eq_demap launches {EQ_LAUNCHES[path]}, plain eq/demap chains"
+        f" on the card {p_eq}")
     if p_eq != 0:
         raise AssertionError(f"{path} ran the plain eq/demap chain on the "
                              f"card {p_eq} times")
@@ -1462,7 +1631,9 @@ def profile_pass(run):
         for ms, n, name in rows:
             if any(k in name for k in ("turbo_decode_kernel", "bcjr_kernel",
                                        "viterbi_tb_kernel",
+                                       "viterbi_search_kernel",
                                        "mimo_eq_demap_kernel",
+                                       "pdcch_pack_kernel",
                                        "pdcch_derm_kernel",
                                        "pdcch_crc_pack_kernel")):
                 log(f"  port kernel {name[:60]}: {ms:.3f} ms over {n} "
@@ -1481,10 +1652,10 @@ def profile_pass(run):
     if not tail or not tail["calls"]:
         raise AssertionError("the profiled pass ran no search tail")
     if tail["copies"] != 0 or (tail["launches"] is not None and
-                               tail["launches"] != 3 * tail["calls"]):
+                               tail["launches"] != 2 * tail["calls"]):
         raise AssertionError(f"the search tail made {tail['launches']} "
                              f"launches and {tail['copies']} copies in "
-                             f"{tail['calls']} calls, not 3 and 0 a call")
+                             f"{tail['calls']} calls, not 2 and 0 a call")
     return chains
 
 
@@ -1753,9 +1924,8 @@ CLI_WITH_COUNTS = (
     "rc = cli.main(sys.argv[1:])\n"
     "print('viterbi_counts ' + json.dumps([viterbi.LAUNCHES['viterbi'], "
     "viterbi.PLAIN_CUDA['viterbi'], calls[0], "
-    "pdcch_tail.LAUNCHES['pdcch_derm'], "
-    "pdcch_tail.LAUNCHES['pdcch_crc_pack'], "
-    "sum(pdcch_tail.PLAIN_CUDA.values())]))\n"
+    "dict(viterbi_search=viterbi.LAUNCHES['viterbi_search'], "
+    "**pdcch_tail.LAUNCHES), sum(pdcch_tail.PLAIN_CUDA.values())]))\n"
     "sys.exit(rc)\n")
 
 
@@ -1763,8 +1933,8 @@ def run_cli(tmp: str) -> tuple:
     """The CLI as a user runs it, in a subprocess on the card: `--sync`
     over the golden stream behind a noise lead, written as an IQ file.
     Returns (pcap sha256, stats without the clock fields, seconds, the
-    process's [Viterbi launches, plain step loops on the card, search
-    tails, pdcch_derm and pdcch_crc_pack launches, plain tails on the
+    process's [Viterbi plain-entry launches, plain step loops on the card,
+    search tails, the tail kernels' launches, plain tails on the
     card])."""
     from ltesniffer_tpu_torch.io import iq as iq_mod
     from ltesniffer_tpu_torch.testing import stream_cell
@@ -2051,19 +2221,21 @@ def scale_out(device, card: str, loaded_stream, placed: int,
                ch["launches"]["bcjr"] for ch in r8c["children"]):
             raise AssertionError("a runner child did not decode through "
                                  "the fused kernel alone")
-        if any(ch["launches"]["viterbi"] <= 0 or
+        if any(ch["launches"]["viterbi_search"] <= 0 or
                ch["launches"]["viterbi_plain_cuda"]
                for ch in r8c["children"]):
             raise AssertionError("a runner child did not search through "
                                  "the Viterbi kernel alone")
         for h, ch in enumerate(r8c["children"]):
             la = ch["launches"]
-            TAIL_LAUNCHES[f"runner child {h}"] = [
-                None, la["pdcch_derm"], la["pdcch_crc_pack"]]
-            tail_check(f"runner child {h}", None, la["pdcch_derm"],
-                       la["pdcch_crc_pack"], la["pdcch_tail_plain_cuda"])
+            tail_check(f"runner child {h}", None,
+                       {k: la[k] for k in TAIL_KERNELS},
+                       la["pdcch_tail_plain_cuda"])
+            VIT_LAUNCHES[f"runner child {h}"] = la["viterbi"]
     vit["multihost"] = r8b["viterbi"]
-    vit["runner"] = [ch["launches"]["viterbi"] for ch in r8c["children"]]
+    vit["runner"] = [ch["launches"]["viterbi"] +
+                     ch["launches"]["viterbi_search"]
+                     for ch in r8c["children"]]
     return {"fused": n_fused_mh, "pass": n_pass_mh,
             "runner": [ch["launches"]["turbo_decode"]
                        for ch in r8c["children"]], "viterbi": vit}
@@ -2234,8 +2406,8 @@ def main() -> int:
         with Phase("2c the two-codeword eq/demap kernel vs its plain "
                    "version"):
             tq = check_mimo_eq(device, m_words, m_scales, tmp, card)
-        with Phase("2d the search tail's two kernels vs their plain "
-                   "versions"):
+        with Phase("2d the search tail: the two-launch route vs the "
+                   "three-launch route and the plain versions"):
             tt = check_pdcch_tail(device, loaded_stream, rng, card)
         with Phase("3 golden scenario on the card"):
             reset_counts()
@@ -2571,14 +2743,17 @@ def main() -> int:
         with Phase("7e the CLI (--sync) in a subprocess"):
             rec_c = json.load(open(EXPECTED_CLI))
             sha, stats, dt_c, cli_vit = run_cli(tmp)
-            log(f"  the CLI's process: viterbi_tb launches {cli_vit[0]}, "
-                f"plain Viterbi step loops on the card {cli_vit[1]}")
-            if cli_vit[0] <= 0 or cli_vit[1] != 0:
+            log(f"  the CLI's process: viterbi_tb launches {cli_vit[0]} "
+                f"(plain entry) + {cli_vit[3]['viterbi_search']} (search "
+                f"entry), plain Viterbi step loops on the card {cli_vit[1]}")
+            if cli_vit[0] + cli_vit[3]["viterbi_search"] <= 0 or \
+                    cli_vit[1] != 0:
                 raise AssertionError("the CLI did not decode through the "
                                      "Viterbi kernel alone")
-            vit["cli"] = cli_vit[0]
-            TAIL_LAUNCHES["CLI"] = cli_vit[2:5]
-            tail_check("the CLI's process", *cli_vit[2:])
+            vit["cli"] = cli_vit[0] + cli_vit[3]["viterbi_search"]
+            VIT_LAUNCHES["CLI"] = cli_vit[0]
+            tail_check("CLI", cli_vit[2],
+                       {k: cli_vit[3][k] for k in TAIL_KERNELS}, cli_vit[4])
             log(f"  CLI pcap sha256 {sha} ({'equal' if sha == rec_c['pcap_sha256'] else 'DIFFERS'}); "
                 f"{dt_c:.1f} s wall with its start-up; stats {stats}")
             if sha != rec_c["pcap_sha256"] or stats != rec_c["stats"]:
@@ -2622,19 +2797,24 @@ def main() -> int:
             "launches_stream": n_pass_s, "launches_multihost": mh["pass"]}, {
             "name": "viterbi_tb", "route": "cuda",
             "source": "ltesniffer_tpu_torch/kernels/csrc/viterbi_tb.cu",
-            "replaces": VITERBI_REPLACES, "launches": vit["loaded"],
-            "max_abs_err": tv["err"], "ms": tv["ms"], "plain_ms": tv["plain_ms"],
-            "bound_ms": tv["bound_ms"], "bound_by": tv["bound_by"],
+            "replaces": VITERBI_REPLACES,
+            "launches": VIT_LAUNCHES["loaded cell"],
+            # the plain entry's main-path calls are the MIB's (12 x 40);
+            # the search call's shape (the three-launch route) is a yardstick
+            "max_abs_err": tv["err"],
+            **{k: tv["mib"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "smem_per_block",
+                "warps_per_sm")},
             "library_ms": None,
-            "shape": {"groups": tv["shapes"], "wrap": 32},
+            "shape": {"groups": [(12, 40)], "wrap": 32},
             "registers": tv["registers"], "spill_bytes": tv["spill_bytes"],
-            "smem_per_block": tv["smem_per_block"],
-            "warps_per_sm": tv["warps_per_sm"], "max_d": tv["d_max"],
-            "mib": {"shape": {"groups": [(12, 40)], "wrap": 32},
-                    **{k: tv["mib"][k] for k in (
-                        "ms", "plain_ms", "bound_ms", "bound_by",
-                        "smem_per_block", "warps_per_sm")}},
-            "launches_per_path": vit}, {
+            "max_d": tv["d_max"],
+            "search_shape": {"shape": {"groups": tv["shapes"], "wrap": 32},
+                             **{k: tv[k] for k in (
+                                 "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "smem_per_block", "warps_per_sm")}},
+            "launches_per_path": dict(VIT_LAUNCHES),
+            "both_entries_per_path": vit}, {
             "name": "mimo_eq_demap", "route": "cuda",
             "source": "ltesniffer_tpu_torch/kernels/csrc/mimo_eq_demap.cu",
             "replaces": MIMO_EQ_REPLACES, "launches": n_eq_m,
@@ -2650,24 +2830,31 @@ def main() -> int:
                            for r, v in turns.items()},
             "launches_per_path": dict(EQ_LAUNCHES),
             "launch_chains": chains}]}
-        for k, key, src_line in ((1, "pdcch_derm", DERM_REPLACES),
-                                 (2, "pdcch_crc_pack", PACK_REPLACES)):
+        for key, src, src_line in (
+                ("viterbi_search", "viterbi_tb.cu", SEARCH_REPLACES),
+                ("pdcch_pack", "pdcch_tail.cu", PACK_REPLACES),
+                ("pdcch_derm", "pdcch_tail.cu", DERM_REPLACES),
+                ("pdcch_crc_pack", "pdcch_tail.cu", PACK_REPLACES)):
             line["kernels"].append({
                 "name": key, "route": "cuda",
-                "source": "ltesniffer_tpu_torch/kernels/csrc/pdcch_tail.cu",
+                "source": f"ltesniffer_tpu_torch/kernels/csrc/{src}",
                 "replaces": src_line,
-                "launches": TAIL_LAUNCHES["loaded cell"][k],
+                "launches": TAIL_LAUNCHES["loaded cell"][key],
                 **{f: tt[key][f] for f in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by")},
                 "library_ms": None, "shape": tt["tail"]["shape"],
-                "ms_turns": tt[key]["ms_turns"], "bytes": tt[key]["bytes"],
-                "ops": tt[key]["ops"],
-                "launches_per_path": {p_: v[k] for p_, v in
+                **{f: tt[key][f] for f in ("ms_turns", "bytes", "ops",
+                                           "device_ms", "kernels_per_call")},
+                "launches_per_path": {p_: v[key] for p_, v in
                                       TAIL_LAUNCHES.items()},
-                "search_tails_per_path": {p_: v[0] for p_, v in
+                "search_tails_per_path": {p_: v["calls"] for p_, v in
                                           TAIL_LAUNCHES.items()},
-                **({"cases": tt[key]["cases"], "tail": tt["tail"],
+                **({"registers": tv["search_registers"],
+                    "spill_bytes": tv["search_spill_bytes"],
+                    "cases": tt[key]["cases"], "tail": tt["tail"],
                     "const_cache": const_passes}
+                   if key == "viterbi_search" else {}),
+                **({"cases": tt[key]["cases"]}
                    if key == "pdcch_derm" else {})})
         log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

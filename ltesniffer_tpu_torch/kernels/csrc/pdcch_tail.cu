@@ -1,6 +1,12 @@
-// The blind PDCCH search's candidate tail around the Viterbi, for Hopper:
-// de-rate-match every payload size in one launch (pdcch_derm), and the
-// CRC-XOR RNTIs with the fused host word row in another (pdcch_crc_pack).
+// The blind PDCCH search's candidate tail around the Viterbi, for Hopper.
+//
+// On the main path the Viterbi's search entry (viterbi_tb.cu) de-rate-
+// matches as it stages its LLRs and writes each codeword's three words
+// (two payload words and rnti | bit 0 << 16), and pdcch_pack packs those
+// words into the fused host row: a search call's tail is 2 launches.
+// pdcch_derm (every payload size's de-rate-matched LLRs into one buffer)
+// and pdcch_crc_pack (the same row from the Viterbi's u8 bits) are the
+// earlier three-launch route, kept as the fold's yardstick.
 //
 // Replaces the tail of the JAX package's jitted search program,
 // ltesniffer_tpu/sniffer/pdcch_rx.py:71 _candidate_decode_tail (XLA inside
@@ -56,8 +62,18 @@
 // (pack: a word's RNTI pair, bitmap, f16 pair or payload word is computed
 // where it is written, so no thread waits on another), no host-to-device
 // copy (tables uploaded once per device, shapes in the parameter block).
-// A later design can fold the de-rate-match into the Viterbi's LLR staging
-// and drop the 37 MB round trip.
+//
+// pdcch_pack, per subframe b and candidate c = loc S + s (m = n_loc S):
+//   input   comp (S, B n_loc, 3) u32, the Viterbi search entry's words of
+//           row b n_loc + loc: payload word 0, payload word 1, rnti | bit
+//           0 << 16; cce, scal as pdcch_crc_pack's
+//   output  fused (B, W) u32 and optional rnti / meta / pay, as
+//           pdcch_crc_pack's, word for word
+//   One thread per fused word, as pdcch_crc_pack, but every input it
+//   reads is a 4-byte word: an RNTI pair two metas, a bitmap word 32 metas'
+//   bit 16, a payload word one payload word.  Bound on the card: bytes
+//   (12 m B read and 4 W B written: 1.37 MB at the 20 MHz search call,
+//   ~0.0004 ms).
 #include <climits>
 #include <cstdint>
 #include <cuda_fp16.h>
@@ -192,6 +208,65 @@ __global__ void __launch_bounds__(kThreads)
   p.fused[static_cast<long long>(b) * p.W + w] = word;
 }
 
+struct WordsParams {
+  const uint32_t* comp;   // (n_sizes, N, 3)
+  const float* cce;
+  const float* scal;
+  uint32_t* fused;
+  int* rnti;
+  int* meta;
+  uint32_t* pay;
+  long long N;            // B n_loc
+  int n_sizes, n_loc, nof_cce, m, mp2, mbw, ncw, sw, W;
+};
+
+// the three words of candidate c of subframe b
+__device__ __forceinline__ const uint32_t* cand_words(const WordsParams& p,
+                                                      int b, int c) {
+  const int s = c % p.n_sizes;
+  const int loc = c / p.n_sizes;
+  return p.comp + 3 * (s * p.N + static_cast<long long>(b) * p.n_loc + loc);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    pdcch_pack_kernel(const WordsParams p) {
+  const int w = blockIdx.x * kThreads + threadIdx.x;
+  const int b = blockIdx.y;
+  if (w >= p.W) return;
+  uint32_t word = 0;
+  if (w < p.mp2) {
+    // two candidates' RNTIs (and, when asked, their meta words)
+    for (int h = 0; h < 2; ++h) {
+      const int c = 2 * w + h;
+      if (c >= p.m) break;
+      const uint32_t mt = __ldg(cand_words(p, b, c) + 2);
+      const uint32_t rn = mt & 0xFFFFu;
+      word |= rn << (16 * h);
+      const long long o = static_cast<long long>(b) * p.m + c;
+      if (p.rnti) p.rnti[o] = static_cast<int>(rn);
+      if (p.meta) p.meta[o] = static_cast<int>(mt);
+    }
+  } else if (w < p.mp2 + p.mbw) {
+    const int c0 = 32 * (w - p.mp2);
+    for (int t = 0; t < 32 && c0 + t < p.m; ++t)
+      word |= ((__ldg(cand_words(p, b, c0 + t) + 2) >> 16) & 1u) << t;
+  } else if (w < p.mp2 + p.mbw + p.ncw) {
+    const int q = 2 * (w - p.mp2 - p.mbw);
+    const float* x = p.cce + static_cast<long long>(b) * p.nof_cce;
+    word = f16_bits(x[q]);
+    if (q + 1 < p.nof_cce) word |= f16_bits(x[q + 1]) << 16;
+  } else if (w < p.mp2 + p.mbw + p.ncw + p.sw) {
+    const int q = 2 * (w - p.mp2 - p.mbw - p.ncw);
+    const float* x = p.scal + 4LL * b;
+    word = f16_bits(x[q]) | (f16_bits(x[q + 1]) << 16);
+  } else {
+    const int q = w - p.mp2 - p.mbw - p.ncw - p.sw;
+    word = __ldg(cand_words(p, b, q >> 1) + (q & 1));
+    if (p.pay) p.pay[static_cast<long long>(b) * 2 * p.m + q] = word;
+  }
+  p.fused[static_cast<long long>(b) * p.W + w] = word;
+}
+
 bool aligned(const void* ptr, uintptr_t a) {
   return ptr && !(reinterpret_cast<uintptr_t>(ptr) & (a - 1));
 }
@@ -300,5 +375,52 @@ extern "C" int pdcch_crc_pack_launch(const void* const* bits, const int* d,
   const dim3 grid((p.W + kThreads - 1) / kThreads, B);
   pdcch_crc_pack_kernel<<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry of pdcch_pack, loaded with ctypes.  comp: contiguous
+// (n_sizes, B n_loc, 3) u32, the Viterbi search entry's words; cce: (B,
+// nof_cce) f32; scal: (B, 4) f32 or null; fused: (B, W) u32, W the
+// layout's width (refused unless it matches); rnti, meta: (B, n_loc
+// n_sizes) i32 and pay: (B, n_loc n_sizes, 2) u32, each null to skip;
+// stream: a cudaStream_t.  Returns the cudaError_t of the launch (0 on
+// success); shapes it does not take return cudaErrorInvalidValue and
+// launch nothing.
+extern "C" int pdcch_pack_launch(const void* comp, int n_sizes,
+                                 const void* cce, const void* scal,
+                                 void* fused, void* rnti, void* meta,
+                                 void* pay, int B, int n_loc, int nof_cce,
+                                 int W, void* stream) {
+  if (!aligned(comp, 4) || n_sizes < 1 || n_sizes > kMaxSizes ||
+      !aligned(cce, 4) || (scal && !aligned(scal, 4)) ||
+      !aligned(fused, 4) || (rnti && !aligned(rnti, 4)) ||
+      (meta && !aligned(meta, 4)) || (pay && !aligned(pay, 4)) || B < 1 ||
+      B > 65535 || n_loc < 1 || nof_cce < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long m = static_cast<long long>(n_loc) * n_sizes;
+  if (m > (INT_MAX - kThreads) / 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  WordsParams p{};
+  p.comp = static_cast<const uint32_t*>(comp);
+  p.N = static_cast<long long>(B) * n_loc;
+  p.n_sizes = n_sizes;
+  p.n_loc = n_loc;
+  p.nof_cce = nof_cce;
+  p.m = static_cast<int>(m);
+  p.mp2 = (p.m + 1) / 2;
+  p.mbw = (p.m + 31) / 32;
+  p.ncw = (nof_cce + 1) / 2;
+  p.sw = scal ? 2 : 0;
+  p.W = p.mp2 + p.mbw + p.ncw + p.sw + 2 * p.m;
+  if (W != p.W) return static_cast<int>(cudaErrorInvalidValue);
+  p.cce = static_cast<const float*>(cce);
+  p.scal = static_cast<const float*>(scal);
+  p.fused = static_cast<uint32_t*>(fused);
+  p.rnti = static_cast<int*>(rnti);
+  p.meta = static_cast<int*>(meta);
+  p.pay = static_cast<uint32_t*>(pay);
+  const dim3 grid((p.W + kThreads - 1) / kThreads, B);
+  pdcch_pack_kernel<<<grid, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,6 +18,14 @@ plain version below.  `LAUNCHES["viterbi"]` counts kernel launches and
 `PLAIN_CUDA["viterbi"]` counts plain step loops run on a CUDA tensor (only
 a comparison with the kernel does that).
 
+`viterbi_search_cuda` launches the same kernel body through its search
+entry: the blind search's de-rate-match folded into the LLR staging
+(from the search head's (B, n_bits) LLRs and `pdcch_tail`'s transposed
+tables) and each codeword's two payload words and rnti | bit 0 << 16
+written after its traceback, for `pdcch_tail.pack_cuda`.  Its launches
+count in `LAUNCHES["viterbi_search"]`; its plain version is
+`pdcch_tail.search_plain`.
+
 The plain version has the JAX package's structure:
 
 * the add-compare-select step is a **butterfly**: with the state
@@ -66,7 +74,7 @@ from .cplx import const
 
 SRC = os.path.join(nvcc_build.CSRC, "viterbi_tb.cu")
 
-LAUNCHES = {"viterbi": 0}
+LAUNCHES = {"viterbi": 0, "viterbi_search": 0}
 PLAIN_CUDA = {"viterbi": 0}   # plain step loops run on a CUDA tensor
 
 # payload sizes one launch takes: the .cu's kMaxGroups, checked against
@@ -226,6 +234,9 @@ def _library():
     lib.viterbi_tb_occupancy.argtypes = [ctypes.c_void_p] * 2 + \
         [ctypes.c_int] + [ctypes.c_void_p] * 2
     lib.viterbi_tb_occupancy.restype = ctypes.c_int
+    lib.viterbi_search_launch.argtypes = [ctypes.c_void_p] * 9 + \
+        [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.viterbi_search_launch.restype = ctypes.c_int
     return lib
 
 
@@ -322,6 +333,81 @@ def viterbi_tb_cuda(groups: Sequence, wrap: int = 32) -> List:
                            f"(D {ds}, wrap {wrap})")
     LAUNCHES["viterbi"] += 1
     return outs
+
+
+def viterbi_search_cuda(llr, size_consts, n_loc: int, B: int,
+                        want_bits: bool = False):
+    """Launch the kernel's search entry once for every payload size of a
+    blind-search call, on the current stream of llr's device, with that
+    device made current for the launch (CUDA tensors only).
+
+    llr: the search head's (B, n_bits) float32 LLRs; size_consts: a
+    `pdcch_tail.SizeConsts` (its sizes and locations; the kernel reads the
+    transposed de-rate-match tables, the location words and the CRC table
+    `pdcch_tail` keeps, uploaded once per device).  Codeword b * n_loc + j
+    of size D is location j of subframe b.  Returns ((S, B * n_loc, 3)
+    int32 words: payload bits 0-31, 32-63 and rnti | bit 0 << 16 as u32
+    bit patterns; [(B * n_loc, D) uint8] bits of every size with
+    `want_bits`, else None)."""
+    from . import pdcch_tail       # the tables (pdcch_tail imports us)
+    ds = pdcch_tail._check_derm(llr, size_consts, n_loc, B,
+                                "viterbi_search")
+    for D in ds:
+        if not 17 <= D <= 16 + pdcch_tail.CRC_LEN:
+            raise ValueError(f"viterbi_search: payload size {D}, the kernel "
+                             f"takes 17 to {16 + pdcch_tail.CRC_LEN}")
+    if llr.data_ptr() % 16 or llr.shape[1] % 4:
+        raise ValueError("viterbi_search: llr must start on a 16-byte "
+                         "boundary and hold a multiple of 4 LLRs a row "
+                         "(the kernel copies the windows 16 bytes at a "
+                         "time)")
+    dev = llr.device
+    if dev.type != "cuda":
+        raise ValueError(f"viterbi_search_cuda: llr on {dev}, not a CUDA "
+                         "device")
+    lib = _search_library()
+    tab, tab_off, nrep = pdcch_tail.derm_tables_t(ds)
+    reps = pdcch_tail.derm_tables(ds)[2]
+    loc = pdcch_tail.loc_table(size_consts.locs)[0]
+    S, N = len(ds), B * n_loc
+    ints = ctypes.c_int * len(ds)
+    with torch.cuda.device(dev):
+        tab_t, loc_t = const(tab, dev), const(loc, dev)
+        crc_t = const(pdcch_tail.crc_words(), dev)
+        comp = torch.empty((S, N, 3), dtype=torch.int32, device=dev)
+        bits = [torch.empty((N, D), dtype=torch.uint8, device=dev)
+                for D in ds] if want_bits else None
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.viterbi_search_launch(
+            llr.data_ptr(), loc_t.data_ptr(), tab_t.data_ptr(),
+            crc_t.data_ptr(), comp.data_ptr(),
+            (ctypes.c_void_p * S)(*[b.data_ptr() for b in bits])
+            if want_bits else None,
+            tab_off.ctypes.data, nrep.ctypes.data, ints(*ds), S, B, n_loc,
+            int(llr.shape[1]), reps, stream)
+    if err != 0:
+        raise RuntimeError(f"viterbi search kernel launch failed: cudaError "
+                           f"{err} (B {B}, n_loc {n_loc}, D {list(ds)})")
+    LAUNCHES["viterbi_search"] += 1
+    return comp, bits
+
+
+@functools.lru_cache(maxsize=1)
+def _search_library():
+    """The library, with the search entry's constants checked against
+    `pdcch_tail`'s."""
+    from . import pdcch_tail
+    lib = _library()
+    lib.viterbi_search_kblock.restype = ctypes.c_int
+    lib.viterbi_search_crc_len.restype = ctypes.c_int
+    if lib.viterbi_search_kblock() != pdcch_tail.KBLOCK or \
+            lib.viterbi_search_crc_len() != pdcch_tail.CRC_LEN:
+        raise RuntimeError(
+            f"viterbi: the search entry sums blocks of "
+            f"{lib.viterbi_search_kblock()} and takes "
+            f"{lib.viterbi_search_crc_len()} CRC bits, pdcch_tail "
+            f"{pdcch_tail.KBLOCK} and {pdcch_tail.CRC_LEN}")
+    return lib
 
 
 def _check_cpu(x):

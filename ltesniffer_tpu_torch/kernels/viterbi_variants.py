@@ -4,8 +4,9 @@
         [--earlier PATH] [--out FILE]
 
 Builds, beside `csrc/viterbi_tb.cu` as it is, variants made from it by
-one textual change each, and times them in turns in one process at the
-two shapes the main paths give the kernel: one blind-search call of the
+one textual change each, and times their plain entry (the search entry's
+staging is not varied) in turns in one process at the two shapes the
+main paths give the kernel: one blind-search call of the
 loaded cell (`core.LTESnifferCore.SEARCH_CHUNK` subframes, every location
 at every payload size) and the MIB's call (12 x 40).
 
@@ -185,7 +186,10 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(20260817)
     res = {"card": card, "shapes": {}, "variants": {}}
     for name in names:
-        (_, regs, st, ld), = nvcc_build.ptxas_report(f"viterbi_var_{name}")
+        # the plain entry's kernel (the source also holds the search entry's)
+        (_, regs, st, ld), = [
+            r for r in nvcc_build.ptxas_report(f"viterbi_var_{name}")
+            if "viterbi_tb_kernel" in r[0]]
         res["variants"][name] = dict(registers=regs, spill_bytes=st + ld)
     for label, shapes in (("search", search_shapes()),
                           ("mib", [MIB_SHAPE])):

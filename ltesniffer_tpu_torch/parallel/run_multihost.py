@@ -97,7 +97,7 @@ def run_child(args) -> int:
                    "launches": {"turbo_decode":
                                 turbo_decode.LAUNCHES["turbo_decode"],
                                 "bcjr": bcjr.LAUNCHES["bcjr"],
-                                "viterbi": viterbi.LAUNCHES["viterbi"],
+                                **viterbi.LAUNCHES,
                                 "viterbi_plain_cuda":
                                 viterbi.PLAIN_CUDA["viterbi"],
                                 **pdcch_tail.LAUNCHES,

@@ -9,9 +9,9 @@ walks the CCE tree sequentially, decoding candidates on demand
   per-CCE power -> {every payload size D: de-rate-match -> ONE batched
   Viterbi -> payload bits + CRC-XOR RNTIs -> packed host words}
 
-The tail after the per-CCE power runs on the card as three kernel
-launches (`kernels/pdcch_tail.py`: `pdcch_derm`, the Viterbi,
-`pdcch_crc_pack`), on the CPU as the plain torch chain.
+The tail after the per-CCE power runs on the card as two kernel launches
+(`kernels/pdcch_tail.py`: the Viterbi's search entry with the de-rate-
+match folded into it, `pdcch_pack`), on the CPU as the plain torch chain.
 
 The host-side acceptance resolver (`dci_search.py`) then replays the
 reference's sequential pruning semantics over these precomputed results.
@@ -76,20 +76,20 @@ def _static_maps(cell: CellConfig, cfi: int):
 
 
 def _candidate_decode_tail(llr, cce_power, size_consts, n_loc: int, B: int,
-                           scalars=None) -> dict:
+                           scalars=None, full: bool = True) -> dict:
     """Shared tail of the blind search: de-rate-match every payload size,
     ONE Viterbi call over all (size x location x subframe) candidates,
     CRC-XOR RNTIs, and the fused host word matrix (meta | payload words |
     cce power) whose single host read covers resolve + payloads.  On the
-    card three kernel launches (`kernels/pdcch_tail.py`: `pdcch_derm`, the
-    Viterbi, `pdcch_crc_pack`), on the CPU the plain torch chain.
+    card two kernel launches (`kernels/pdcch_tail.py`: the Viterbi's
+    search entry, `pdcch_pack`), on the CPU the plain torch chain.
 
-    Returns per payload size D: bits_{D} (B, n_loc, D) uint8 and
-    rnti_{D} (B, n_loc); cand_meta (B, n_loc, S) [rnti | bit0 << 16];
-    cand_pay (B, n_loc, S, 2) (u32 payload words); cand_fused (B, W)
-    int32."""
+    Returns cand_fused (B, W) int32 and, with `full`, per payload size D
+    bits_{D} (B, n_loc, D) uint8 and rnti_{D} (B, n_loc), cand_meta
+    (B, n_loc, S) [rnti | bit0 << 16] and cand_pay (B, n_loc, S, 2) (u32
+    payload words)."""
     return pdcch_tail.decode_tail(llr, cce_power, size_consts, n_loc, B,
-                                  scalars)
+                                  scalars, full)
 
 
 def unpack_fused(fused: np.ndarray, n_loc: int, S: int, nof_cce: int,
@@ -204,9 +204,10 @@ def make_unified_search(cell: CellConfig):
         cce_power = torch.mean(
             torch.abs(llr[:, :72 * nof_cce3]).reshape(B, nof_cce3, 72),
             dim=-1)
+        # the core reads cand_fused alone: no per-size bits or words
         return {"cand_fused": _candidate_decode_tail(
-            llr, cce_power, size_consts, n_loc, B,
-            scalars=scalars)["cand_fused"]}
+            llr, cce_power, size_consts, n_loc, B, scalars=scalars,
+            full=False)["cand_fused"]}
 
     st = dict(st3)
     st["nof_cce_of"] = tuple(nof_cce_of)

@@ -371,8 +371,9 @@ def test_viterbi_kernel_refuses_oversize_codewords(card):
 @pytest.mark.cuda
 def test_unified_search_through_kernel_equals_plain(card, monkeypatch):
     """`make_unified_search` on the card: `cand_fused` through the Viterbi
-    kernel equals `cand_fused` through the plain step loop on the same
-    grids, word for word."""
+    kernel's search entry equals `cand_fused` through the plain step loop
+    (on pdcch_derm's LLRs, the three-launch route) on the same grids, word
+    for word."""
     from ltesniffer_tpu_torch.mac_rrc import mac
     from ltesniffer_tpu_torch.phy.params import CellConfig
     from ltesniffer_tpu_torch.sniffer import frontend, pdcch_rx
@@ -391,12 +392,15 @@ def test_unified_search_through_kernel_equals_plain(card, monkeypatch):
     def search():
         return run(fe["grids"], fe["h"], fe["noise_var"], fe["snr_db"], sf,
                    fe["cfi"] - 1, fe["scalars"])["cand_fused"].cpu().numpy()
-    n0 = viterbi.LAUNCHES["viterbi"]
+    n0 = dict(viterbi.LAUNCHES)
     got = search()
-    assert viterbi.LAUNCHES["viterbi"] == n0 + 1
+    assert viterbi.LAUNCHES == dict(n0, viterbi_search=n0["viterbi_search"]
+                                    + 1)
     p0 = viterbi.PLAIN_CUDA["viterbi"]
     monkeypatch.setattr(viterbi, "viterbi_decode_tb_multi",
                         viterbi.viterbi_decode_tb_multi_plain)
+    monkeypatch.setattr(pdcch_tail, "decode_tail_cuda",
+                        lambda *a, **k: pdcch_tail.decode_tail_three(*a[:6]))
     want = search()
     assert viterbi.PLAIN_CUDA["viterbi"] == p0 + 1
     np.testing.assert_array_equal(got, want)
@@ -426,9 +430,12 @@ def test_mimo_eq_kernel_matches_plain(card, variant):
         assert ok, f"largest error {err}"
 
 
-# the search tail's shapes: the 20 MHz cell's unified search, and a 25-PRB
-# 4-port cell (7 payload sizes, 31 locations, 17 CCEs: odd counts)
-TAIL_CELLS = {"20mhz": (301, 100, 2), "25prb_4port": (7, 25, 4)}
+# the search tail's shapes: the 20 MHz cell's unified search, a 25-PRB
+# 4-port cell (7 payload sizes, 31 locations, 17 CCEs: odd counts) and a
+# 6-PRB cell (D = 24-47: the search entry's staging takes 3 codewords of
+# D = 24 at a time)
+TAIL_CELLS = {"20mhz": (301, 100, 2), "25prb_4port": (7, 25, 4),
+              "6prb": (3, 6, 1)}
 
 
 def _tail_inputs(name, card, B, half_integer=False, seed=0):
@@ -522,20 +529,22 @@ def test_pdcch_crc_pack_kernel_equals_plain(card, name):
 
 @pytest.mark.cuda
 def test_tail_through_kernels_equals_plain(card):
-    """The whole tail on the card: three launches (pdcch_derm, the Viterbi,
-    pdcch_crc_pack) and no plain version; on exact-sum LLRs every output
-    equals the plain tail's on the card and on the host."""
+    """The whole tail on the card: two launches (the Viterbi's search
+    entry, pdcch_pack) and no plain version; on exact-sum LLRs every
+    output equals the plain tail's on the card and on the host."""
     from ltesniffer_tpu_torch.sniffer import pdcch_rx
     B = 64
     llr, cce, scal, sc, n_loc = _tail_inputs("20mhz", card, B, True, seed=2)
     pdcch_tail.reset_launches()
-    v0 = viterbi.LAUNCHES["viterbi"]
+    viterbi.reset_launches()
     got = pdcch_rx._candidate_decode_tail(llr, cce, sc, n_loc, B,
                                           scalars=scal)
     torch.cuda.synchronize()
-    assert pdcch_tail.LAUNCHES == {"pdcch_derm": 1, "pdcch_crc_pack": 1}
-    assert viterbi.LAUNCHES["viterbi"] == v0 + 1
-    assert pdcch_tail.PLAIN_CUDA == {"pdcch_derm": 0, "pdcch_crc_pack": 0}
+    assert pdcch_tail.LAUNCHES == {"pdcch_derm": 0, "pdcch_crc_pack": 0,
+                                   "pdcch_pack": 1}
+    assert viterbi.LAUNCHES == {"viterbi": 0, "viterbi_search": 1}
+    assert not any(pdcch_tail.PLAIN_CUDA.values())
+    assert not any(viterbi.PLAIN_CUDA.values())
     want = pdcch_tail.decode_tail_plain(llr, cce, sc, n_loc, B, scal)
     host = pdcch_tail.decode_tail_plain(llr.cpu(), cce.cpu(), sc, n_loc, B,
                                         scal.cpu())
@@ -551,8 +560,9 @@ def test_tail_through_kernels_equals_plain(card):
 @pytest.mark.cuda
 def test_core_runs_the_tail_through_the_kernels(card, tmp_path):
     """A core run on the card (the golden scenario): every search call's
-    tail is one pdcch_derm and one pdcch_crc_pack launch, no plain tail on
-    the card, and no constant uploaded again by a second run."""
+    tail is one launch of the Viterbi's search entry and one of
+    pdcch_pack, neither pdcch_derm nor pdcch_crc_pack, no plain tail on the
+    card, and no constant uploaded again by a second run."""
     from ltesniffer_tpu_torch.kernels import cplx
     from ltesniffer_tpu_torch.sniffer import core, pdcch_rx
     from ltesniffer_tpu_torch.testing import stream_cell
@@ -568,6 +578,7 @@ def test_core_runs_the_tail_through_the_kernels(card, tmp_path):
         uploads = []
         for k in range(2):
             pdcch_tail.reset_launches()
+            viterbi.reset_launches()
             calls.clear()
             c = core.LTESnifferCore(core.SnifferConfig(
                 cell=cell, batch_size=8, device="cuda",
@@ -577,13 +588,137 @@ def test_core_runs_the_tail_through_the_kernels(card, tmp_path):
             torch.cuda.synchronize()
             uploads.append(cplx.UPLOADS["n"])
             assert len(calls) > 0
-            assert pdcch_tail.LAUNCHES == {"pdcch_derm": len(calls),
-                                           "pdcch_crc_pack": len(calls)}
-            assert pdcch_tail.PLAIN_CUDA == {"pdcch_derm": 0,
-                                             "pdcch_crc_pack": 0}
+            assert pdcch_tail.LAUNCHES == {"pdcch_derm": 0,
+                                           "pdcch_crc_pack": 0,
+                                           "pdcch_pack": len(calls)}
+            assert viterbi.LAUNCHES["viterbi_search"] == len(calls)
+            assert not any(pdcch_tail.PLAIN_CUDA.values())
     finally:
         pdcch_rx._candidate_decode_tail = real
     assert uploads[1] == uploads[0]
+
+
+def _route_vs_three(a, B):
+    """The two-launch route and the three-launch route on the same card
+    inputs: every output, bits of every size included, word for word;
+    the search entry's words equal compact_plain of the three-launch
+    route's bits."""
+    llr, cce, scal, sc, n_loc = a
+    for s_ in (None, scal):
+        got = pdcch_tail.decode_tail(llr, cce, sc, n_loc, B, s_)
+        three = pdcch_tail.decode_tail_three(llr, cce, sc, n_loc, B, s_)
+        assert list(got) == list(three)
+        for k in three:
+            np.testing.assert_array_equal(got[k].cpu().numpy(),
+                                          three[k].cpu().numpy(), err_msg=k)
+    comp, bits = viterbi.viterbi_search_cuda(llr, sc, n_loc, B, True)
+    want = pdcch_tail.compact_plain(
+        [three[f"bits_{D}"].reshape(B * n_loc, D) for D in sc])
+    np.testing.assert_array_equal(comp.cpu().numpy(), want.cpu().numpy())
+    for b, D in zip(bits, sc):
+        np.testing.assert_array_equal(
+            b.cpu().numpy(), three[f"bits_{D}"].reshape(-1, D).cpu().numpy())
+    return comp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", [False, True], ids=["random", "exact"])
+@pytest.mark.parametrize("name", sorted(TAIL_CELLS))
+def test_viterbi_search_equals_three_launch_route(card, name, half):
+    """The Viterbi's search entry and pdcch_pack against pdcch_derm, the
+    plain entry and pdcch_crc_pack on the same card LLRs: bits, words and
+    every tail output word for word (the staging sums in pdcch_derm's
+    order); on exact sums also the plain tail's; one launch each."""
+    B = 64 if name == "20mhz" else 5
+    a = _tail_inputs(name, card, B, half, seed=3)
+    n0, p0 = viterbi.LAUNCHES["viterbi_search"], \
+        pdcch_tail.LAUNCHES["pdcch_pack"]
+    comp, _ = viterbi.viterbi_search_cuda(*a[:1], a[3], a[4], B)
+    pdcch_tail.pack_cuda(comp, a[1], a[4], B, a[2])
+    torch.cuda.synchronize()
+    assert viterbi.LAUNCHES["viterbi_search"] == n0 + 1
+    assert pdcch_tail.LAUNCHES["pdcch_pack"] == p0 + 1
+    assert comp.dtype == torch.int32 and tuple(comp.shape) == (
+        len(a[3]), B * a[4], 3)
+    _route_vs_three(a, B)
+    if half:
+        llr, cce, scal, sc, n_loc = a
+        got = pdcch_tail.decode_tail(llr, cce, sc, n_loc, B, scal)
+        want = pdcch_tail.route_plain(llr.cpu(), cce.cpu(), sc, n_loc, B,
+                                      scal.cpu())
+        for k in want:
+            np.testing.assert_array_equal(got[k].cpu().numpy(),
+                                          want[k].numpy(), err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TAIL_CELLS))
+def test_pdcch_pack_kernel_equals_plain(card, name):
+    """pdcch_pack against pack_plain on the same card words (the search
+    entry's): cand_fused with and without the scalars, the RNTIs, meta
+    and payload words word for word; without the optional outputs the
+    same row."""
+    B = 64 if name == "20mhz" else 5
+    llr, cce, scal, sc, n_loc = _tail_inputs(name, card, B, seed=4)
+    comp, _ = viterbi.viterbi_search_cuda(llr, sc, n_loc, B)
+    for s_ in (None, scal):
+        got = pdcch_tail.pack_cuda(comp, cce, n_loc, B, s_, outputs=True)
+        short = pdcch_tail.pack_cuda(comp, cce, n_loc, B, s_)
+        want = pdcch_tail.pack_plain(comp, cce, n_loc, B, s_)
+        assert set(short) == {"cand_fused"}
+        np.testing.assert_array_equal(short["cand_fused"].cpu().numpy(),
+                                      want["cand_fused"].cpu().numpy())
+        assert list(got) == ["cand_fused", "rnti", "cand_meta", "cand_pay"]
+        for k in want:
+            np.testing.assert_array_equal(got[k].cpu().numpy(),
+                                          want[k].cpu().numpy(), err_msg=k)
+
+
+@pytest.mark.cuda
+def test_viterbi_search_refuses_shapes(card):
+    """The search entry's C function refuses payload sizes outside 17 to
+    16 + CRC_LEN, a repetition count past the tables' rows and a
+    misaligned output with cudaErrorInvalidValue and launches nothing; the
+    wrapper refuses the sizes before it."""
+    import ctypes
+    llr, _, _, sc, n_loc = _tail_inputs("25prb_4port", card, 2)
+    ds = tuple(sc)
+    tab, tab_off, nrep = pdcch_tail.derm_tables_t(ds)
+    reps = pdcch_tail.derm_tables(ds)[2]
+    from ltesniffer_tpu_torch.kernels.cplx import const
+    tab_t = const(tab, card)
+    loc_t = const(pdcch_tail.loc_table(sc.locs)[0], card)
+    crc_t = const(pdcch_tail.crc_words(), card)
+    comp = torch.zeros((len(ds), 2 * n_loc, 3), dtype=torch.int32,
+                       device=card)
+    lib = viterbi._search_library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(d, nrep_, out_ptr):
+        ints = ctypes.c_int * len(d)
+        return lib.viterbi_search_launch(
+            llr.data_ptr(), loc_t.data_ptr(), tab_t.data_ptr(),
+            crc_t.data_ptr(), out_ptr, None, tab_off.ctypes.data,
+            nrep_.ctypes.data, ints(*d), len(d), 2, n_loc,
+            int(llr.shape[1]), reps, stream)
+    assert launch(ds, nrep, comp.data_ptr()) == 0
+    torch.cuda.synchronize()
+    before = comp.clone()
+    comp.zero_()
+    for d, nr, ptr in ((ds[:-1] + (16,), nrep, comp.data_ptr()),
+                       (ds[:-1] + (17 + pdcch_tail.CRC_LEN,), nrep,
+                        comp.data_ptr()),
+                       (ds, nrep + reps, comp.data_ptr()),
+                       (ds, nrep, comp.data_ptr() + 2)):
+        assert launch(d, nr, ptr) == 1
+    torch.cuda.synchronize()
+    assert not comp.any() and before.any()
+    n0 = viterbi.LAUNCHES["viterbi_search"]
+    for D in (16, 17 + pdcch_tail.CRC_LEN):
+        with pytest.raises(ValueError, match="payload size"):
+            viterbi.viterbi_search_cuda(
+                llr, pdcch_tail.SizeConsts({D: {}}, sc.locs), n_loc, 2)
+    assert viterbi.LAUNCHES["viterbi_search"] == n0
 
 
 @pytest.fixture
@@ -670,16 +805,30 @@ def test_mimo_eq_on_second_card(two_cards):
 
 @pytest.mark.cuda
 def test_pdcch_tail_on_second_card(two_cards):
-    """Both tail kernels on cuda:1 while cuda:0 is current: outputs on
-    cuda:1, equal to the plain versions there on exact-sum LLRs."""
+    """The two-launch tail (the Viterbi's search entry, whose shared-memory
+    attribute is set per device, and pdcch_pack) on cuda:1 while cuda:0 is
+    current, after a call on cuda:0: outputs on cuda:1, every one equal to
+    the plain versions there on exact-sum LLRs; so is the three-launch
+    route's."""
     first, second = two_cards
     B = 8
+    a0 = _tail_inputs("25prb_4port", first, B, True)
+    pdcch_tail.decode_tail(*a0[:2], a0[3], a0[4], B, a0[2])
     llr, cce, scal, sc, n_loc = _tail_inputs("25prb_4port", second, B, True)
     want = pdcch_tail.decode_tail_plain(llr, cce, sc, n_loc, B, scal)
+    n0 = viterbi.LAUNCHES["viterbi_search"]
     with torch.cuda.device(first):
         got = pdcch_tail.decode_tail(llr, cce, sc, n_loc, B, scal)
+        three = pdcch_tail.decode_tail_three(llr, cce, sc, n_loc, B, scal)
         torch.cuda.synchronize(second)
         assert torch.cuda.current_device() == first.index
-    assert got["cand_fused"].device == second
-    np.testing.assert_array_equal(got["cand_fused"].cpu().numpy(),
-                                  want["cand_fused"].cpu().numpy())
+    assert viterbi.LAUNCHES["viterbi_search"] == n0 + 1
+    for out in (got, three):
+        assert list(out) == list(want)
+        for k in want:
+            assert out[k].device == second
+            g = out[k].cpu().numpy()
+            w = want[k].cpu().numpy()
+            if k == "cand_pay":
+                g, w = g.view(np.uint32), w.astype(np.uint32)
+            np.testing.assert_array_equal(g, w, err_msg=k)

@@ -274,9 +274,10 @@ def loaded_chunk():
     seen = {}
     real = pdcch_rx._candidate_decode_tail
 
-    def spy(*a, scalars=None):
-        seen["args"] = a + (scalars,)
-        seen["out"] = real(*a, scalars=scalars)
+    def spy(*a, **k):
+        seen["args"] = a + (k.get("scalars"),)
+        seen["full"] = k.get("full")
+        seen["out"] = real(*a, **k)
         return seen["out"]
     pdcch_rx._candidate_decode_tail = spy
     try:
@@ -614,3 +615,456 @@ def test_const_cache_stops_growing_ul_golden():
         counts.append((len(cplx._CONST_CACHE), cplx.UPLOADS["n"]))
     assert counts[0][0] > 0
     assert counts[1] == counts[0]
+
+
+# ---------------------------------------------------------------------------
+# the two-launch route: the Viterbi's search entry (the de-rate-match in
+# its staging, the per-codeword words after its traceback) and pdcch_pack
+# ---------------------------------------------------------------------------
+CELL25 = CellConfig(n_id_cell=7, n_prb=25, nof_ports=4)
+TAIL_CELLS = {"20mhz": CELL20, "25prb_4port": CELL25}
+CELL_SIZES = [(name, D) for name, cell in TAIL_CELLS.items()
+              for D in consts_of(cell)[1]]
+
+
+def test_the_25prb_4port_cell_has_odd_counts():
+    """7 payload sizes, 31 locations, 17 CCEs: odd m and odd nof_cce."""
+    st, sc = consts_of(CELL25)
+    assert (len(sc), len(sc.locs), st["nof_cce"]) == (7, 31, 17)
+
+
+@pytest.mark.parametrize("cell,D", CELL_SIZES,
+                         ids=[f"{c}-{D}" for c, D in CELL_SIZES])
+def test_derm_tables_t_is_the_transpose(cell, D):
+    """Each (size, level) block of the transposed table is its block of
+    `derm_tables` transposed, starting on a 16-byte boundary and padded
+    with -1 to the next; nrep counts the rows that hold an e-offset, and
+    the rows past it hold none."""
+    ds = tuple(consts_of(TAIL_CELLS[cell])[1])
+    tab, tab_off, reps = pdcch_tail.derm_tables(ds)
+    tab_t, off_t, nrep = pdcch_tail.derm_tables_t(ds)
+    assert tab_t.dtype == np.int16 and (off_t % 8 == 0).all()
+    assert len(tab_t) == sum(-(-3 * d * reps // 8) * 8 for d in ds) * 4
+    s = ds.index(D)
+    for l in range(4):
+        n = 3 * D * reps
+        t = tab[tab_off[s, l]:tab_off[s, l] + n].reshape(3 * D, reps)
+        tt = tab_t[off_t[s, l]:off_t[s, l] + n].reshape(reps, 3 * D)
+        np.testing.assert_array_equal(tt, t.T)
+        assert (tab_t[off_t[s, l] + n:off_t[s, l] - (-n // 8) * 8] == -1).all()
+        assert (tt[:nrep[s, l]] >= 0).any(1).all()
+        assert (tt[nrep[s, l]:] == -1).all()
+        assert nrep[s, l] == -(-(72 << l) // (3 * D))
+
+
+def search_stage_model(llr: np.ndarray, sc) -> list:
+    """The search entry's staging in float32 numpy: codeword row = b n_loc
+    + j of each size reads its own location's level table (transposed:
+    row r, every stream position k at once, as a warp's lanes do) for its
+    level's nrep rows and its own subframe's window; each position's
+    e-offsets below KBLOCK and from KBLOCK on summed apart from +0 in
+    increasing e, then the two sums added.  Returns every size's
+    (B n_loc, 3, D) staged LLRs."""
+    ds = tuple(sc)
+    tab_t, off_t, nrep = pdcch_tail.derm_tables_t(ds)
+    reps = pdcch_tail.derm_tables(ds)[2]
+    loc = pdcch_tail.loc_table(sc.locs)[0].astype(np.int64)
+    B, n_loc = llr.shape[0], len(sc.locs)
+    rows = np.arange(B * n_loc)
+    b, j = rows // n_loc, rows % n_loc
+    lvl, base = loc[j] & 3, loc[j] >> 2
+    outs = []
+    for s, D in enumerate(ds):
+        out = np.empty((B * n_loc, 3 * D), np.float32)
+        for l in range(4):
+            sel = np.nonzero(lvl == l)[0]
+            if len(sel) == 0:
+                continue
+            t = tab_t[off_t[s, l]:off_t[s, l] + reps * 3 * D].reshape(
+                reps, 3 * D).astype(np.int64)
+            assert (t < 2 * KB).all()       # two blocks at most
+            p0 = np.zeros((len(sel), 3 * D), np.float32)
+            p1 = np.zeros_like(p0)
+            for r in range(nrep[s, l]):
+                e = t[r]
+                x = llr[b[sel, None], base[sel, None] +
+                        np.where(e >= 0, e, 0)[None, :]]
+                p0 = np.where((e >= 0) & (e < KB), p0 + x, p0)
+                p1 = np.where(e >= KB, p1 + x, p1)
+            out[sel] = p0 + p1
+        outs.append(out.reshape(B * n_loc, 3, D))
+    return outs
+
+
+def random_llrs(cell, B, rng):
+    st = pdcch_rx._static_maps(cell, 3)
+    llr = (3.0 * rng.standard_normal((B, 8 * (len(st["gather_idx"]) // 4)))
+           ).astype(np.float32)
+    llr[:, ::7] *= np.float32(0.0)          # +-0, as beyond a region
+    return llr
+
+
+@pytest.mark.parametrize("cell,D", CELL_SIZES,
+                         ids=[f"{c}-{D}" for c, D in CELL_SIZES])
+def test_search_stage_model_equals_plain(cell, D):
+    """Every level of size D, seeded random LLRs with +-0 among them, three
+    subframes (so some warps of 32 codewords span two): the staged floats
+    equal the plain einsum's on the host bit for bit, none is -0."""
+    _, sc = consts_of(TAIL_CELLS[cell])
+    sub = only(sc, (D,))
+    n_loc, B = len(sc.locs), 3
+    assert any(w // n_loc != min(w + 31, B * n_loc - 1) // n_loc
+               for w in range(0, B * n_loc, 32))
+    assert {l for l, _ in sc.locs} == {0, 1, 2, 3}
+    llr = random_llrs(TAIL_CELLS[cell], B, np.random.default_rng(D))
+    got = search_stage_model(llr, sub)[0]
+    want = pdcch_tail.derm_plain(torch.from_numpy(llr), sub, n_loc, B)[0]
+    f32_equal(got, want.numpy(), f"{cell} D={D}")
+    assert not np.signbit(got[got == 0]).any()
+
+
+@pytest.mark.parametrize("D", SIZES20)
+def test_search_stage_model_equals_plain_loaded_chunk(loaded_chunk, D):
+    """The loaded cell's real LLRs of one search call: bit for bit with the
+    plain version and with pdcch_derm's model."""
+    llr, _, sc, n_loc, B, _ = loaded_chunk["args"]
+    sub = only(sc, (D,))
+    got = search_stage_model(llr.numpy(), sub)[0]
+    f32_equal(got, pdcch_tail.derm_plain(llr, sub, n_loc, B)[0].numpy(),
+              f"D={D}")
+    f32_equal(got, derm_model(llr.numpy(), sub)[0], f"D={D} (derm model)")
+
+
+def epilogue_model(bits: np.ndarray) -> np.ndarray:
+    """The search entry's epilogue in numpy integers, every lane at once:
+    from (N, D) bytes, (N, 3) u32 words: payload bits i < 32 and 32 <= i <
+    L (L = D - 16) shifted in LSB first, then rnti | bit 0 << 16 with the
+    CRC the XOR of crc_words[L - 1 - i] over the set payload bits i and
+    the 16 received bits shifted in MSB first."""
+    words = pdcch_tail.crc_words().view(np.uint32)
+    bits = bits.astype(np.uint32)
+    N, D = bits.shape
+    L = D - 16
+    p0, p1, c, rx = (np.zeros(N, np.uint32) for _ in range(4))
+    for i in range(L):
+        c ^= (np.uint32(0) - bits[:, i]) & words[L - 1 - i]
+        if i < 32:
+            p0 |= bits[:, i] << np.uint32(i)
+        else:
+            p1 |= bits[:, i] << np.uint32(i - 32)
+    for i in range(16):
+        rx = (rx << np.uint32(1)) | bits[:, L + i]
+    meta = ((c ^ rx) & np.uint32(0xFFFF)) | (bits[:, 0] << np.uint32(16))
+    return np.stack([p0, p1, meta], 1)
+
+
+def pack_words_model(compact: np.ndarray, cce, scal, n_loc: int,
+                     B: int) -> dict:
+    """pdcch_pack in numpy integers, one value per fused word: candidate c
+    = loc S + s reads words [s, b n_loc + loc]; an RNTI pair word two
+    metas' low halves, a bitmap word 32 metas' bit 16, a payload word one
+    payload word; the f16 words as pdcch_crc_pack's."""
+    comp = compact.view(np.uint32)
+    S = comp.shape[0]
+    m = n_loc * S
+    c = np.arange(m)
+    rows = np.arange(B)[:, None] * n_loc + c[None, :] // S
+    w = comp[c[None, :] % S, rows]                    # (B, m, 3)
+    meta, pay = w[..., 2], w[..., :2]
+    lay = pdcch_tail.fused_layout(n_loc, S, cce.shape[1], scal is not None)
+    fused = np.zeros((B, lay["W"]), np.uint32)
+    for k in range(lay["mp2"]):
+        fused[:, k] = meta[:, 2 * k] & np.uint32(0xFFFF)
+        if 2 * k + 1 < m:
+            fused[:, k] |= (meta[:, 2 * k + 1] & np.uint32(0xFFFF)) << \
+                np.uint32(16)
+    for k in range(lay["mbw"]):
+        for t in range(min(32, m - 32 * k)):
+            fused[:, lay["mp2"] + k] |= ((meta[:, 32 * k + t] >> np.uint32(
+                16)) & np.uint32(1)) << np.uint32(t)
+    o = lay["mp2"] + lay["mbw"]
+    fused[:, o:o + lay["ncw"]] = _pairs(_f16(cce))
+    o += lay["ncw"]
+    if scal is not None:
+        fused[:, o:o + 2] = _pairs(_f16(scal))
+        o += 2
+    fused[:, o:] = pay.reshape(B, 2 * m)
+    return dict(cand_fused=fused.view(np.int32),
+                rnti=(meta & np.uint32(0xFFFF)).reshape(B, n_loc, S),
+                cand_meta=meta.reshape(B, n_loc, S),
+                pay=pay.reshape(B, n_loc, S, 2))
+
+
+@pytest.mark.parametrize("n_prb", (6, 15, 25, 50, 100))
+def test_epilogue_model_equals_compact_plain(n_prb):
+    """The epilogue's words from random bits at every payload size of a
+    4-port cell's fixed-CFI search (CFI 3): word for word."""
+    ds, n_loc, _ = search_shape(n_prb, 3, 4)
+    rng = np.random.default_rng(n_prb)
+    bits = random_bits(ds, n_loc, 3, rng)
+    got = pdcch_tail.compact_plain([torch.from_numpy(b) for b in bits])
+    assert got.dtype == torch.int32 and tuple(got.shape) == (
+        len(ds), 3 * n_loc, 3)
+    want = np.stack([epilogue_model(b) for b in bits])
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("n_prb,cfi,ports", SWEEP,
+                         ids=[f"{n}prb-cfi{c}-{p}port" for n, c, p in SWEEP])
+def test_compact_then_pack_equals_crc_pack_plain(n_prb, cfi, ports):
+    """compact_plain then pack_plain gives crc_pack_plain's cand_fused (with
+    and without the scalars), RNTIs, meta and payload words word for word
+    on the same bits: the two-launch route's packing is the earlier one."""
+    ds, n_loc, nof_cce = search_shape(n_prb, cfi, ports)
+    rng = np.random.default_rng(n_prb * 100 + cfi * 10 + ports + 7)
+    B = 3
+    bits = random_bits(ds, n_loc, B, rng)
+    cce = np.abs(random_floats((B, nof_cce), rng))
+    scal = random_floats((B, 4), rng)
+    compact = pdcch_tail.compact_plain([torch.from_numpy(b) for b in bits])
+    for sc_ in (None, scal):
+        want = pack_plain(bits, cce, sc_, ds, n_loc, B)
+        got = pdcch_tail.pack_plain(
+            compact, torch.from_numpy(cce), n_loc, B,
+            None if sc_ is None else torch.from_numpy(sc_))
+        assert all(v.dtype == torch.int32 for v in got.values())
+        np.testing.assert_array_equal(got["cand_fused"].numpy(),
+                                      want["cand_fused"].numpy())
+        np.testing.assert_array_equal(got["cand_meta"].numpy(),
+                                      want["cand_meta"].numpy())
+        np.testing.assert_array_equal(
+            got["cand_pay"].numpy().view(np.uint32),
+            want["cand_pay"].numpy().astype(np.uint32))
+        for s, D in enumerate(ds):
+            np.testing.assert_array_equal(got["rnti"][..., s].numpy(),
+                                          want[f"rnti_{D}"].numpy())
+
+
+@pytest.mark.parametrize("n_prb,cfi,ports", SWEEP,
+                         ids=[f"{n}prb-cfi{c}-{p}port" for n, c, p in SWEEP])
+def test_pack_words_model_equals_pack_plain(n_prb, cfi, ports):
+    """The model of pdcch_pack (one value per fused word, every input a
+    4-byte word) against pack_plain on random words (random metas, not
+    only those a CRC gives): every output word for word."""
+    ds, n_loc, nof_cce = search_shape(n_prb, cfi, ports)
+    rng = np.random.default_rng(n_prb * 100 + cfi * 10 + ports + 9)
+    B, S = 3, len(ds)
+    comp = rng.integers(0, 1 << 32, (S, B * n_loc, 3), dtype=np.uint64)
+    comp[..., 2] &= 0x1FFFF                 # rnti | bit 0 << 16
+    comp = comp.astype(np.uint32).view(np.int32)
+    cce = np.abs(random_floats((B, nof_cce), rng))
+    scal = random_floats((B, 4), rng)
+    for sc_ in (None, scal):
+        want = pack_words_model(comp, cce, sc_, n_loc, B)
+        got = pdcch_tail.pack_plain(
+            torch.from_numpy(comp), torch.from_numpy(cce), n_loc, B,
+            None if sc_ is None else torch.from_numpy(sc_))
+        np.testing.assert_array_equal(got["cand_fused"].numpy(),
+                                      want["cand_fused"])
+        np.testing.assert_array_equal(got["rnti"].numpy(), want["rnti"])
+        np.testing.assert_array_equal(
+            got["cand_meta"].numpy().view(np.uint32), want["cand_meta"])
+        np.testing.assert_array_equal(
+            got["cand_pay"].numpy().view(np.uint32), want["pay"])
+
+
+def test_route_models_give_the_tail_of_the_loaded_chunk(loaded_chunk):
+    """The two-launch route, modelled end to end on the CPU (the staging
+    model, the Viterbi's plain version, the epilogue model, the pack
+    model), gives the plain tail's cand_fused word for word."""
+    from ltesniffer_tpu_torch.kernels import viterbi
+    llr, cce, sc, n_loc, B, scal = loaded_chunk["args"]
+    staged = [torch.from_numpy(g) for g in search_stage_model(llr.numpy(),
+                                                              sc)]
+    bits = [b.numpy() for b in viterbi.viterbi_decode_tb_multi(staged)]
+    comp = np.stack([epilogue_model(b) for b in bits]).view(np.int32)
+    got = pack_words_model(comp, cce.numpy(), scal.numpy(), n_loc, B)
+    np.testing.assert_array_equal(got["cand_fused"],
+                                  loaded_chunk["out"]["cand_fused"].numpy())
+
+
+def test_unified_search_reads_cand_fused_only(loaded_chunk):
+    """The unified search asks the tail for cand_fused alone: no
+    per-candidate words, no bits."""
+    assert loaded_chunk["full"] is False
+    assert list(loaded_chunk["out"]) == ["cand_fused"]
+
+
+def _jax_tail(cell, ref_cell, seed):
+    """Half-integer LLRs (every sum exact in any order), CCE powers and
+    scalars of one small search call, and the JAX package's tail on
+    them."""
+    st, sc = consts_of(cell)
+    ref_sc = ref_pdcch._size_consts_of(ref_pdcch._static_maps(ref_cell, 3))
+    assert tuple(ref_sc) == tuple(sc)
+    rng = np.random.default_rng(seed)
+    B, n_loc = 3, len(st["locs"])
+    n_bits = 8 * (len(st["gather_idx"]) // 4)
+    llr = (rng.integers(-12, 13, (B, n_bits)) / 2.0).astype(np.float32)
+    cce = np.abs(rng.standard_normal((B, st["nof_cce"]))).astype(np.float32)
+    scal = rng.standard_normal((B, 4)).astype(np.float32)
+    want = jax.jit(lambda a, c, s: ref_pdcch._candidate_decode_tail(
+        {}, a, c, ref_sc, n_loc, B, s))(jnp.asarray(llr), jnp.asarray(cce),
+                                        jnp.asarray(scal))
+    return [torch.from_numpy(x) for x in (llr, cce, scal)], sc, n_loc, B, \
+        {k: np.asarray(v) for k, v in want.items()}
+
+
+def test_route_plain_equals_jax():
+    """The two-launch route's plain model (`route_plain`: derm_plain, the
+    plain Viterbi, compact_plain, pack_plain) against the JAX package's
+    tail on the same inputs: every output equal."""
+    (llr, cce, scal), sc, n_loc, B, want = _jax_tail(
+        CellConfig(n_id_cell=11, n_prb=15, nof_ports=2),
+        RefCell(n_id_cell=11, n_prb=15, nof_ports=2), 5)
+    got = pdcch_tail.route_plain(llr, cce, sc, n_loc, B, scal)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        g = got[k].numpy()
+        if k in ("cand_pay", "cand_meta") or k.startswith("rnti_"):
+            g = g.view(np.uint32).astype(np.int64)
+            w = w.astype(np.int64)
+        np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+def test_route_plain_equals_decode_tail_plain():
+    """route_plain against decode_tail_plain at the 25-PRB 4-port cell on
+    random LLRs: the same keys in the same order, every word equal."""
+    _, sc = consts_of(CELL25)
+    B, n_loc = 4, len(sc.locs)
+    rng = np.random.default_rng(25)
+    llr = torch.from_numpy(random_llrs(CELL25, B, rng))
+    cce = torch.from_numpy(np.abs(random_floats((B, 17), rng)))
+    scal = torch.from_numpy(random_floats((B, 4), rng))
+    got = pdcch_tail.route_plain(llr, cce, sc, n_loc, B, scal)
+    want = pdcch_tail.decode_tail_plain(llr, cce, sc, n_loc, B, scal)
+    assert list(got) == list(want)
+    for k in want:
+        g, w = got[k].numpy(), want[k].numpy()
+        if g.dtype == np.int32 and w.dtype == np.int64:
+            g = g.view(np.uint32).astype(np.int64) if k != "cand_fused" \
+                else g
+        np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+@pytest.mark.parametrize("full", [True, False])
+def test_decode_tail_switch_on_cpu(full):
+    """Without `full` the tail returns cand_fused alone; what it returns
+    equals the plain tail's."""
+    st, sc = consts_of(CellConfig(n_id_cell=3, n_prb=6, nof_ports=1))
+    rng = np.random.default_rng(4)
+    B, n_loc = 2, len(st["locs"])
+    llr = torch.from_numpy((2.0 * rng.standard_normal(
+        (B, 8 * (len(st["gather_idx"]) // 4)))).astype(np.float32))
+    cce = torch.rand((B, st["nof_cce"]))
+    got = pdcch_rx._candidate_decode_tail(llr, cce, sc, n_loc, B, full=full)
+    want = pdcch_tail.decode_tail_plain(llr, cce, sc, n_loc, B)
+    keys = list(want) if full else ["cand_fused"]
+    assert list(got) == keys
+    for k in keys:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy())
+
+
+def _search_args():
+    st, sc = consts_of(CellConfig(n_id_cell=3, n_prb=6, nof_ports=1))
+    n_bits = 8 * (len(st["gather_idx"]) // 4)
+    return torch.zeros((2, n_bits)), sc, len(sc.locs), 2
+
+
+@pytest.mark.parametrize("what,err", [
+    ("dtype", TypeError), ("strided", ValueError), ("shape", ValueError),
+    ("consts", TypeError), ("n_loc", ValueError), ("short", ValueError),
+    ("sizes", ValueError), ("d_small", ValueError), ("d_large", ValueError),
+    ("unaligned", ValueError), ("cpu", ValueError)])
+def test_search_wrapper_checks_before_a_launch(what, err):
+    """viterbi_search_cuda refuses what the search entry does not take
+    before it builds or launches anything (so it runs here on CPU
+    tensors)."""
+    from ltesniffer_tpu_torch.kernels import viterbi
+    llr, sc, n_loc, B = _search_args()
+    if what == "dtype":
+        llr = llr.to(torch.float64)
+    elif what == "strided":
+        llr = torch.zeros((2, 2 * llr.shape[1]))[:, ::2]
+    elif what == "shape":
+        llr = llr[0]
+    elif what == "consts":
+        sc = dict(sc)
+    elif what == "n_loc":
+        n_loc += 1
+    elif what == "short":
+        llr = llr[:, :-8].contiguous()
+    elif what == "sizes":
+        sc = pdcch_tail.SizeConsts({}, sc.locs)
+    elif what == "d_small":
+        sc = pdcch_tail.SizeConsts({16: {}}, sc.locs)
+    elif what == "d_large":
+        sc = pdcch_tail.SizeConsts({17 + pdcch_tail.CRC_LEN: {}}, sc.locs)
+    elif what == "unaligned":
+        llr = torch.zeros(llr.numel() + 1)[1:].view(llr.shape)
+    n0 = dict(viterbi.LAUNCHES)
+    with pytest.raises(err, match="16-byte" if what == "unaligned" else None):
+        viterbi.viterbi_search_cuda(llr, sc, n_loc, B)
+    assert viterbi.LAUNCHES == n0
+
+
+@pytest.mark.parametrize("what,err", [
+    ("dtype", TypeError), ("rows", ValueError), ("width", ValueError),
+    ("sizes", ValueError), ("cce", TypeError), ("scalars", ValueError),
+    ("strided", ValueError), ("cpu", ValueError), ("devices", ValueError)])
+def test_pack_words_wrapper_checks_before_a_launch(what, err):
+    """pack_cuda refuses what pdcch_pack does not take, inputs off a CUDA
+    device or on two devices, before it builds or launches."""
+    B, n_loc, S = 2, 10, 2
+    comp = torch.zeros((S, B * n_loc, 3), dtype=torch.int32)
+    cce = torch.zeros((B, 9))
+    scal = torch.zeros((B, 4))
+    if what == "dtype":
+        comp = comp.to(torch.int64)
+    elif what == "rows":
+        comp = comp[:, :-1]
+    elif what == "width":
+        comp = comp[..., :2]
+    elif what == "sizes":
+        comp = torch.zeros((9, B * n_loc, 3), dtype=torch.int32)
+    elif what == "cce":
+        cce = cce.to(torch.float16)
+    elif what == "scalars":
+        scal = torch.zeros((B, 3))
+    elif what == "strided":
+        comp = torch.zeros((S, B * n_loc, 6), dtype=torch.int32)[..., ::2]
+    elif what == "devices":
+        cce = cce.to("meta")
+    n0 = dict(pdcch_tail.LAUNCHES)
+    with pytest.raises(err):
+        pdcch_tail.pack_cuda(comp, cce, n_loc, B, scal)
+    assert pdcch_tail.LAUNCHES == n0
+    assert pdcch_tail._check_words(
+        torch.zeros((S, B * n_loc, 3), dtype=torch.int32),
+        torch.zeros((B, 9)), torch.zeros((B, 4)), n_loc, B) == S
+
+
+def test_search_and_words_bounds_at_the_search_call():
+    """The bounds' counts at one search call of the 20 MHz cell: the search
+    entry reads the 1.55 MB of LLRs (not pdcch_derm's 37 MB buffer) and
+    writes 2.9 MB of words; pdcch_pack reads 0.72 MB of words and writes
+    the 0.62 MB of rows; the search entry's operations are the plain
+    entry's plus the de-rate-match's adds and the epilogue's integer
+    work."""
+    from ltesniffer_tpu_torch.kernels import viterbi
+    _, sc = consts_of(CELL20)
+    B, n_loc, n_bits = 64, 157, 6056
+    n = B * n_loc
+    assert 4 * B * n_bits == 1_550_336
+    tab = pdcch_tail.derm_tables_t(SIZES20)[0]
+    assert pdcch_tail.search_bytes(B, n_bits, SIZES20, n_loc) == \
+        1_550_336 + tab.nbytes + 4 * 157 + 4 * 64 + 12 * n * 6
+    assert pdcch_tail.search_bytes(B, n_bits, SIZES20, n_loc) < 5_000_000
+    assert pdcch_tail.search_ops(B, SIZES20, sc.locs) == \
+        viterbi.ops([(n, D) for D in SIZES20]) + \
+        pdcch_tail.derm_ops(B, SIZES20, sc.locs) + \
+        pdcch_tail.pack_ops(B, SIZES20, n_loc)
+    m = n_loc * 6
+    assert pdcch_tail.words_bytes(B, 6, n_loc, 84, True) == \
+        12 * B * m + 4 * B * 84 + 16 * B + 4 * B * 2429
+    assert pdcch_tail.words_ops(B, 6, n_loc) == 7 * B * m
