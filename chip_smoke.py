@@ -1386,6 +1386,14 @@ def count_tail_calls():
     pdcch_rx._candidate_decode_tail = counted
 
 
+def host_reads(*sites) -> int:
+    """Reads at the tracer's `host_read.<site>` counters since its reset."""
+    from ltesniffer_tpu_torch.sniffer import prof
+    c = prof.counters()
+    return sum(c.get(f"host_read.{s}", {"events": 0})["events"]
+               for s in sites)
+
+
 def reset_counts():
     from ltesniffer_tpu_torch.kernels import bcjr, mimo_eq, pdcch_tail
     from ltesniffer_tpu_torch.kernels import turbo_decode, viterbi
@@ -1612,7 +1620,8 @@ def profile_pass(run):
     for e in p.key_averages():
         # kernels only: host ops carry their kernels' time as well, and
         # the chain ranges show on the device timeline as annotations
-        if e.device_type != DeviceType.CUDA or e.key.startswith("chain:"):
+        if e.device_type != DeviceType.CUDA or e.key.startswith(
+                ("chain:", "span:")):
             continue
         t = getattr(e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0.0))
@@ -2252,7 +2261,7 @@ def main() -> int:
     from ltesniffer_tpu_torch.kernels import mimo_eq, pdcch_tail, viterbi
     from ltesniffer_tpu_torch.phy import tables, turbo as turbo_host
     from ltesniffer_tpu_torch.io import sdr
-    from ltesniffer_tpu_torch.sniffer import core, pdsch_rx, prof, pusch_rx
+    from ltesniffer_tpu_torch.sniffer import core, prof
     from ltesniffer_tpu_torch.sniffer import sync
     from ltesniffer_tpu_torch.testing import loaded_cell, mimo_cell, ul_cell
     from ltesniffer_tpu_torch.testing import stream_cell
@@ -2473,7 +2482,6 @@ def main() -> int:
         with Phase("5 MIMO cell, 20 MHz, 2x2, 64 subframes, batch "
                    f"{MIMO_BATCH}"):
             reset_counts()
-            pdsch_rx.HOST_READS["mimo"] = 0
             prof.reset()
             cm, acc_m, dt_m = run_loaded(device, m_words, m_scales, tmp,
                                          batch_size=MIMO_BATCH,
@@ -2483,7 +2491,7 @@ def main() -> int:
             n_eq_m = mimo_eq.LAUNCHES["mimo_eq_demap"]
             n_eq_plain = mimo_eq.PLAIN_CUDA["mimo_eq_demap"]
             vit["mimo"] = viterbi_count("MIMO cell")
-            reads = pdsch_rx.HOST_READS["mimo"]
+            reads = host_reads("mimo_llr", "mimo_bits")
             sm = cm.summary()
             n_2tb = sum(1 for a in acc_m if a[2] in ("2", "2A"))
             mspan = prof.report().get("p3_mimo", {"s": 0.0, "n": 0})
@@ -2564,7 +2572,6 @@ def main() -> int:
             vit["ul_golden"] = viterbi_count("UL golden scenario")
             prof.reset()
             reset_counts()
-            pusch_rx.HOST_READS["pusch"] = 0
             cu, dci0, dt_u = run_ul(device, ul_dl, ul_ul, tmp)
             n_fused_u = turbo_decode.LAUNCHES["turbo_decode"]
             n_pass_u = bcjr.LAUNCHES["bcjr"]
@@ -2578,7 +2585,7 @@ def main() -> int:
                 f"({dt_u:.2f} s wall, first reading, not a target)")
             log(f"  launches in this run: turbo_decode (fused) {n_fused_u}, "
                 f"bcjr (pass kernel) {n_pass_u}; PUSCH host reads "
-                f"{pusch_rx.HOST_READS['pusch']}")
+                f"{host_reads('pu_d2h', 'pu_escalate')}")
             for line in prof.pretty().splitlines():
                 log(f"  host span {line}")
             compare_ul(rec_ul, cu, dci0, ul_truth)

@@ -13,7 +13,10 @@ BCJR twin, which forms every sum in the kernel's order.
 runs the plain version for CPU tensors.
 
 The kernel is built with nvcc at first use (`nvcc_build`) and launched on
-the current stream; `LAUNCHES["turbo_decode"]` counts its launches.
+the current stream; `LAUNCHES["turbo_decode"]` counts its launches, and
+each launch adds its B code blocks to the tracer's counters `turbo_cb` and
+`turbo_cb.K<K>` (`sniffer/prof.py`: total / events is the code blocks a
+launch).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import os
 import torch
 
 from ltesniffer_tpu_torch.phy import tables_data
+from ltesniffer_tpu_torch.sniffer import prof
 from . import nvcc_build
 
 SRC = os.path.join(nvcc_build.CSRC, "turbo_decode.cu")
@@ -139,4 +143,6 @@ def turbo_decode_cuda(d_llrs, K: int, n_iter: int):
         raise RuntimeError(f"turbo_decode kernel launch failed: cudaError "
                            f"{err}")
     LAUNCHES["turbo_decode"] += 1
+    prof.count("turbo_cb", B)
+    prof.count(f"turbo_cb.K{K}", B)
     return bits, llr

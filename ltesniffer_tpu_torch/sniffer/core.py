@@ -449,11 +449,13 @@ class LTESnifferCore:
     # ------------------------------------------------------------------
     def _phase1_chunk(self, d64, d_scale, sf_idx: np.ndarray) -> dict:
         """Queue the frontend on one int64-carried chunk on the device."""
-        with prof.span("p1_frontend"):
-            fe = self.frontend.run_i8c64(
-                d64, torch.from_numpy(sf_idx).to(self.device), d_scale,
-                float(np.float32(self.est_cfo)))
-        return self._dispatched(fe, sf_idx)
+        prof.batch_start(self._sf_dispatched, len(sf_idx))
+        with prof.span("phase1"):
+            with prof.span("p1_frontend"):
+                fe = self.frontend.run_i8c64(
+                    d64, torch.from_numpy(sf_idx).to(self.device), d_scale,
+                    float(np.float32(self.est_cfo)))
+            return self._dispatched(fe, sf_idx)
 
     def _phase1(self, frames: np.ndarray, sf_idx: np.ndarray,
                 scale=None) -> dict:
@@ -461,19 +463,21 @@ class LTESnifferCore:
         (on-device CFO de-rotation) when `scale` is given, else complex64
         frames (B, RX, n) as float pairs."""
         sf_idx = np.asarray(sf_idx).astype(np.int64)
-        sf_dev = torch.from_numpy(sf_idx).to(self.device)
-        with prof.span("p1_frontend"):
-            if scale is not None:
-                fe = self.frontend.run_i16(
-                    torch.from_numpy(np.ascontiguousarray(frames)).to(
-                        self.device), sf_dev,
-                    torch.tensor(np.float32(scale), device=self.device),
-                    float(np.float32(self.est_cfo)))
-            else:
-                fe = self.frontend.run(
-                    np.ascontiguousarray(frames, dtype=np.complex64),
-                    sf_dev, self.device)
-        return self._dispatched(fe, sf_idx)
+        prof.batch_start(self._sf_dispatched, len(sf_idx))
+        with prof.span("phase1"):
+            sf_dev = torch.from_numpy(sf_idx).to(self.device)
+            with prof.span("p1_frontend"):
+                if scale is not None:
+                    fe = self.frontend.run_i16(
+                        torch.from_numpy(np.ascontiguousarray(frames)).to(
+                            self.device), sf_dev,
+                        torch.tensor(np.float32(scale), device=self.device),
+                        float(np.float32(self.est_cfo)))
+                else:
+                    fe = self.frontend.run(
+                        np.ascontiguousarray(frames, dtype=np.complex64),
+                        sf_dev, self.device)
+            return self._dispatched(fe, sf_idx)
 
     def _dispatched(self, fe: dict, sf_idx: np.ndarray) -> dict:
         """A batch's context once its frontend is queued."""
@@ -494,52 +498,54 @@ class LTESnifferCore:
     def _phase2(self, ctx: dict):
         """Queue the MIB decodes and the blind search; the fused candidate
         words (with the frontend scalars folded in) are read in _phase3."""
-        fe = ctx["fe"]
-        B = ctx["B"]
-        sf_idx = ctx["sf_idx"]
-        # un-synced SFN: queue a MIB decode for this batch's subframe-0
-        # candidates NOW; the bits are resolved in _consume_scalars once
-        # the SNR gate is known
-        if not self._mib_synced:
-            pend = []
-            seen = self._mib_sf0_seen   # projected: resolve-side gate uses
-            for i in range(B):          # the SNR-qualified count
-                if sf_idx[i] == 0 and len(pend) < 4:
-                    seen += 1
-                    # apply the every-8th-frame backoff at DISPATCH time
-                    # too: past the first 8 frames, skipped candidates are
-                    # wasted device work
-                    if seen > 8 and seen % 8 != 0:
-                        continue
-                    pend.append((i, pbch_rx.dispatch_mib_at(
-                        fe["grids"], fe["h"], fe["noise_var"], i,
-                        self.cell)))
-            ctx["mib_pend"] = pend
-        run, st = pdcch_rx.make_unified_search(self.cell)
-        # the per-subframe CFI rides as DATA, straight from the PCFICH
-        # stage: no host read in this phase
-        cfi_dev = fe["cfi"] - 1
-        sf_dev = torch.from_numpy(np.asarray(sf_idx, np.int64)).to(
-            self.device)
-        CH = self.SEARCH_CHUNK
-        chunks = []   # (cand_fused dev, head-skip)
-        with prof.span("p2_search"):
-            a = 0
-            while a < B:
-                skip = 0
-                if B > CH and a + CH > B:
-                    # overlap the tail chunk backward (as the reference
-                    # package does); the re-decoded head rows are dropped
-                    skip = CH - (B - a)
-                    a = B - CH
-                sl = slice(a, a + CH)
-                out_c = run(fe["grids"][sl], fe["h"][sl],
-                            fe["noise_var"][sl], fe["snr_db"][sl],
-                            sf_dev[sl], cfi_dev[sl], fe["scalars"][sl])
-                chunks.append((out_c["cand_fused"], skip))
-                a += CH
-        ctx["outs"] = {"_st": st, "_chunks": chunks}
-        ctx["stage"] = 2
+        prof.batch(ctx["base"])
+        with prof.span("phase2"):
+            fe = ctx["fe"]
+            B = ctx["B"]
+            sf_idx = ctx["sf_idx"]
+            # un-synced SFN: queue a MIB decode for this batch's subframe-0
+            # candidates NOW; the bits are resolved in _consume_scalars once
+            # the SNR gate is known
+            if not self._mib_synced:
+                pend = []
+                seen = self._mib_sf0_seen   # projected: resolve-side gate uses
+                for i in range(B):          # the SNR-qualified count
+                    if sf_idx[i] == 0 and len(pend) < 4:
+                        seen += 1
+                        # apply the every-8th-frame backoff at DISPATCH time
+                        # too: past the first 8 frames, skipped candidates are
+                        # wasted device work
+                        if seen > 8 and seen % 8 != 0:
+                            continue
+                        pend.append((i, pbch_rx.dispatch_mib_at(
+                            fe["grids"], fe["h"], fe["noise_var"], i,
+                            self.cell)))
+                ctx["mib_pend"] = pend
+            run, st = pdcch_rx.make_unified_search(self.cell)
+            # the per-subframe CFI rides as DATA, straight from the PCFICH
+            # stage: no host read in this phase
+            cfi_dev = fe["cfi"] - 1
+            sf_dev = torch.from_numpy(np.asarray(sf_idx, np.int64)).to(
+                self.device)
+            CH = self.SEARCH_CHUNK
+            chunks = []   # (cand_fused dev, head-skip)
+            with prof.span("p2_search"):
+                a = 0
+                while a < B:
+                    skip = 0
+                    if B > CH and a + CH > B:
+                        # overlap the tail chunk backward (as the reference
+                        # package does); the re-decoded head rows are dropped
+                        skip = CH - (B - a)
+                        a = B - CH
+                    sl = slice(a, a + CH)
+                    out_c = run(fe["grids"][sl], fe["h"][sl],
+                                fe["noise_var"][sl], fe["snr_db"][sl],
+                                sf_dev[sl], cfi_dev[sl], fe["scalars"][sl])
+                    chunks.append((out_c["cand_fused"], skip))
+                    a += CH
+            ctx["outs"] = {"_st": st, "_chunks": chunks}
+            ctx["stage"] = 2
 
     def _consume_scalars(self, ctx: dict, scal: np.ndarray):
         """Host-side consumption of the frontend scalars (CFI / SNR / CFO /
@@ -590,7 +596,7 @@ class LTESnifferCore:
                     with prof.span("p2_mib"):
                         if i in pend:
                             mib = pbch_rx.resolve_mib_bits(
-                                pend[i].cpu().numpy())
+                                prof.host_read("p2_mib", pend[i]).numpy())
                         else:
                             # beyond the dispatched candidates: sync call
                             mib = pbch_rx.decode_mib_at(
@@ -606,61 +612,83 @@ class LTESnifferCore:
         """Read the fused candidate words (candidates + scalars); resolve
         in time order; unpack accepted payloads; run handlers and queue
         the grouped PDSCH decode."""
-        outs = ctx["outs"]
-        B = ctx["B"]
-        sf_idx = ctx["sf_idx"]
-        out = outs
-        st = out["_st"]
-        with prof.span("p3_join"):
-            fused = np.concatenate(
-                [dev.cpu().numpy()[skip:] for dev, skip in out["_chunks"]])
-        n_loc = len(st["locs"])
-        nof_cce = st["nof_cce"]
-        S = len(st["size_order"])
-        with prof.span("p3_meta"):
-            cand_meta, cce, scal, pay = pdcch_rx.unpack_fused(
-                fused, n_loc, S, nof_cce, with_scalars=True,
-                with_payloads=True)
-        ctx["_pay"] = pay
-        self._consume_scalars(ctx, scal)
-        out["_host"] = {
-            "cand_meta": cand_meta,
-            "cce_power": cce,
-            "snr_db": ctx["snr"],
-        }
-        # ---- pass A: sequential resolve (RNTI-manager state in time order)
-        resolved = []
-        for i in range(B):
-            c = int(ctx["cfi"][i])
-            gi = i
-            sf = int(sf_idx[i])
-            sfn_i = (self.sfn + (ctx["fbase"] + i) // 10) % 1024
-            with prof.span("resolve"):
-                accepted = self.search.resolve_subframe(
-                    out["_host"], gi, st["locs"],
-                    st["nof_cce_of"][min(max(c, 1), 3) - 1], sf,
-                    sfn=sfn_i)
-            # RAR acceptance gates later subframes' RNTI validation:
-            # handle it synchronously (rare; pays one extra fetch)
-            if self.cfg.decode_pdsch and any(
-                    RARNTI_START <= a.rnti <= RARNTI_FDD_END and a.fmt != "0"
-                    for a in accepted):
-                self._materialize_payloads(ctx, [(c, a) for a in accepted])
-                for a in accepted:
-                    if (RARNTI_START <= a.rnti <= RARNTI_FDD_END
-                            and a.fmt != "0"):
-                        self._handle_dl_dci(ctx["fe"], i, c, a, sfn_i, sf)
-                        a._done = True
-            resolved.append((i, c, gi, sf, sfn_i, accepted))
-            self.processed += 1
-        # ---- one payload fetch for everything accepted in the batch
-        refs = [(c, a) for (_, c, _, _, _, acc) in resolved for a in acc
-                if isinstance(a.payload, dci_search.PayloadRef)]
-        self._materialize_payloads(ctx, refs)
-        # ---- pass B: handlers in time order + batched PDSCH jobs
+        prof.batch(ctx["base"])
+        with prof.span("phase3"):
+            outs = ctx["outs"]
+            B = ctx["B"]
+            sf_idx = ctx["sf_idx"]
+            out = outs
+            st = out["_st"]
+            with prof.span("p3_join"):
+                fused = np.concatenate(
+                    [prof.host_read("p3_join", dev).numpy()[skip:]
+                     for dev, skip in out["_chunks"]])
+            n_loc = len(st["locs"])
+            nof_cce = st["nof_cce"]
+            S = len(st["size_order"])
+            with prof.span("p3_meta"):
+                cand_meta, cce, scal, pay = pdcch_rx.unpack_fused(
+                    fused, n_loc, S, nof_cce, with_scalars=True,
+                    with_payloads=True)
+            ctx["_pay"] = pay
+            self._consume_scalars(ctx, scal)
+            out["_host"] = {
+                "cand_meta": cand_meta,
+                "cce_power": cce,
+                "snr_db": ctx["snr"],
+            }
+            # ---- pass A: sequential resolve (RNTI-manager state in time
+            # order)
+            resolved = []
+            for i in range(B):
+                c = int(ctx["cfi"][i])
+                gi = i
+                sf = int(sf_idx[i])
+                sfn_i = (self.sfn + (ctx["fbase"] + i) // 10) % 1024
+                with prof.span("resolve"):
+                    accepted = self.search.resolve_subframe(
+                        out["_host"], gi, st["locs"],
+                        st["nof_cce_of"][min(max(c, 1), 3) - 1], sf,
+                        sfn=sfn_i)
+                # RAR acceptance gates later subframes' RNTI validation:
+                # handle it synchronously (rare; pays one extra fetch)
+                if self.cfg.decode_pdsch and any(
+                        RARNTI_START <= a.rnti <= RARNTI_FDD_END
+                        and a.fmt != "0" for a in accepted):
+                    self._materialize_payloads(ctx, [(c, a) for a in accepted])
+                    for a in accepted:
+                        if (RARNTI_START <= a.rnti <= RARNTI_FDD_END
+                                and a.fmt != "0"):
+                            self._handle_dl_dci(ctx["fe"], i, c, a, sfn_i, sf)
+                            a._done = True
+                resolved.append((i, c, gi, sf, sfn_i, accepted))
+                self.processed += 1
+            # ---- one payload fetch for everything accepted in the batch
+            refs = [(c, a) for (_, c, _, _, _, acc) in resolved for a in acc
+                    if isinstance(a.payload, dci_search.PayloadRef)]
+            self._materialize_payloads(ctx, refs)
+            # ---- pass B: handlers in time order + batched PDSCH jobs
+            with prof.span("p3_handlers"):
+                pending = self._run_handlers(ctx, resolved)
+            # queue the grouped PDSCH decode on the device (ONE call across
+            # all cfi groups: jobs carry their own cfi); its fused result is
+            # read in _phase4, after the next batch's work is queued
+            with prof.span("pdsch_dispatch"):
+                ctx["pdsch"] = self._dispatch_pending(ctx["fe"], pending)
+            self.sf_count += B
+            now_tti = trackers.tti_of(self.sfn + self.sf_count // 10,
+                                      int(sf_idx[-1]))
+            self.mcs.update_database(now_tti)
+            self.harq.prune(now_tti)
+            ctx["stage"] = 3
+        prof.batch_dci(ctx["base"])
+
+    def _run_handlers(self, ctx: dict, resolved) -> list:
+        """Pass B of phase 3: the handlers in time order; returns the
+        batched PDSCH jobs."""
+        out = ctx["outs"]
         pending = []
         fe = ctx["fe"]
-        _tb = prof.time.perf_counter()
         for (i, c, gi, sf, sfn_i, accepted) in resolved:
             self._count_rb_collisions(accepted)
             if self.dci_trace is not None and accepted:
@@ -696,18 +724,7 @@ class LTESnifferCore:
             if self.on_subframe:
                 self.on_subframe(dict(out=out, gi=gi, cfi=c, sf=sf,
                                       sfn=sfn_i, accepted=accepted))
-        prof.add("p3_handlers", prof.time.perf_counter() - _tb)
-        # queue the grouped PDSCH decode on the device (ONE call across
-        # all cfi groups: jobs carry their own cfi); its fused result is
-        # read in _phase4, after the next batch's work is queued
-        with prof.span("pdsch_dispatch"):
-            ctx["pdsch"] = self._dispatch_pending(fe, pending)
-        self.sf_count += B
-        now_tti = trackers.tti_of(self.sfn + self.sf_count // 10,
-                                  int(sf_idx[-1]))
-        self.mcs.update_database(now_tti)
-        self.harq.prune(now_tti)
-        ctx["stage"] = 3
+        return pending
 
     def _phase4(self, ctx: dict):
         """Join the primary fused PDSCH read; DISPATCH the iteration
@@ -715,67 +732,75 @@ class LTESnifferCore:
         their results apply in _phase5 one iteration later, so the
         re-decodes overlap the next batch's host work instead of a
         synchronous dispatch+read that drains the device queue inline."""
-        post = []
-        for fe, jobs, pb in ctx.get("pdsch") or []:
-            with prof.span("p4_results"):
-                res = pdsch_rx.finish_grants_batch(
-                    pb, soft_buffers=self.soft_buffers)
-            esc = None
-            if self.cfg.turbo_iters_max > self.cfg.turbo_iters:
-                esc_idx = [idx for idx, r in enumerate(res)
-                           if r is not None and not r.crc_ok
-                           and idx in pb.seg_of]
-                if esc_idx:
-                    with prof.span("p4_escalate_dispatch"):
-                        esc = pdsch_rx.escalate_dispatch(
-                            pb, esc_idx, self.cfg.turbo_iters_max)
-            # unknown-table misses: batched retry with the 256QAM table
-            # (`DL_Sniffer_PDSCH.cc:1090-1243` dual-table trial)
-            retry = None
-            retry_jobs, retry_idx = [], []
-            for idx, (job, r) in enumerate(zip(jobs, res)):
-                t = job.tag
-                if (r is not None and not r.crc_ok and not t["is_special"]
-                        and t["known"] == trackers.McsTable.UNKNOWN):
-                    qm2, i2 = tables.dl_mcs_to_qm_itbs(t["grant"].mcs, True)
-                    tbs2 = (tables.tbs_lookup(i2, t["grant"].n_prb_alloc)
-                            if i2 >= 0 else 0)
-                    if tbs2 > 0:
-                        retry_jobs.append(dataclasses.replace(
-                            job, qm=qm2, tbs=tbs2, harq_key=None))
-                        retry_idx.append(idx)
-            if retry_jobs:
-                with prof.span("p4_retry_dispatch"):
-                    rpb = pdsch_rx.dispatch_grants_batch(
-                        fe["grids"], fe["h"], fe["noise_var"], self.cell,
-                        retry_jobs, n_iter=self.cfg.turbo_iters_max)
-                retry = (retry_idx, rpb)
-            post.append((jobs, pb, res, esc, retry))
-        ctx["pdsch_post"] = post
-        ctx["stage"] = 4
+        prof.batch(ctx["base"])
+        with prof.span("phase4"):
+            post = []
+            for fe, jobs, pb in ctx.get("pdsch") or []:
+                with prof.span("p4_results"):
+                    res = pdsch_rx.finish_grants_batch(
+                        pb, soft_buffers=self.soft_buffers)
+                esc = None
+                if self.cfg.turbo_iters_max > self.cfg.turbo_iters:
+                    esc_idx = [idx for idx, r in enumerate(res)
+                               if r is not None and not r.crc_ok
+                               and idx in pb.seg_of]
+                    if esc_idx:
+                        with prof.span("p4_escalate_dispatch"):
+                            esc = pdsch_rx.escalate_dispatch(
+                                pb, esc_idx, self.cfg.turbo_iters_max)
+                # unknown-table misses: batched retry with the 256QAM table
+                # (`DL_Sniffer_PDSCH.cc:1090-1243` dual-table trial)
+                retry = None
+                retry_jobs, retry_idx = [], []
+                for idx, (job, r) in enumerate(zip(jobs, res)):
+                    t = job.tag
+                    if (r is not None and not r.crc_ok and not t["is_special"]
+                            and t["known"] == trackers.McsTable.UNKNOWN):
+                        qm2, i2 = tables.dl_mcs_to_qm_itbs(t["grant"].mcs,
+                                                           True)
+                        tbs2 = (tables.tbs_lookup(i2, t["grant"].n_prb_alloc)
+                                if i2 >= 0 else 0)
+                        if tbs2 > 0:
+                            retry_jobs.append(dataclasses.replace(
+                                job, qm=qm2, tbs=tbs2, harq_key=None))
+                            retry_idx.append(idx)
+                if retry_jobs:
+                    prof.count("pdsch_grant_retried", len(retry_jobs))
+                    with prof.span("p4_retry_dispatch"):
+                        rpb = pdsch_rx.dispatch_grants_batch(
+                            fe["grids"], fe["h"], fe["noise_var"], self.cell,
+                            retry_jobs, n_iter=self.cfg.turbo_iters_max)
+                    retry = (retry_idx, rpb)
+                post.append((jobs, pb, res, esc, retry))
+            ctx["pdsch_post"] = post
+            ctx["stage"] = 4
 
     def _phase5(self, ctx: dict):
         """Apply escalation/retry results; run handlers, pcap, stats."""
-        for jobs, pb, res, esc, retry in ctx.get("pdsch_post") or []:
-            if esc is not None:
-                with prof.span("p5_escalate_join"):
-                    pdsch_rx.escalate_finish(
-                        pb, esc, soft_buffers=self.soft_buffers)
-            if retry is not None:
-                retry_idx, rpb = retry
-                with prof.span("p5_retry_join"):
-                    res2 = pdsch_rx.finish_grants_batch(rpb)
-                for idx, r2 in zip(retry_idx, res2):
-                    # escalation (64QAM at full iterations) wins ties —
-                    # the reference tries 64 first, then 256
-                    if r2.crc_ok and not res[idx].crc_ok:
-                        res[idx] = r2
-                        jobs[idx].tag["table"] = trackers.McsTable.QAM256
-            with prof.span("p5_finish_dl"):
-                for job, r in zip(jobs, res):
-                    self._finish_dl(job, r, job.tag)
-        self._tick_observers(ctx["B"])
-        ctx["stage"] = 5
+        prof.batch(ctx["base"])
+        with prof.span("phase5"):
+            for jobs, pb, res, esc, retry in ctx.get("pdsch_post") or []:
+                if esc is not None:
+                    with prof.span("p5_escalate_join"):
+                        pdsch_rx.escalate_finish(
+                            pb, esc, soft_buffers=self.soft_buffers)
+                if retry is not None:
+                    retry_idx, rpb = retry
+                    with prof.span("p5_retry_join"):
+                        res2 = pdsch_rx.finish_grants_batch(
+                            rpb, site="retry_join")
+                    for idx, r2 in zip(retry_idx, res2):
+                        # escalation (64QAM at full iterations) wins ties —
+                        # the reference tries 64 first, then 256
+                        if r2.crc_ok and not res[idx].crc_ok:
+                            res[idx] = r2
+                            jobs[idx].tag["table"] = trackers.McsTable.QAM256
+                with prof.span("p5_finish_dl"):
+                    for job, r in zip(jobs, res):
+                        self._finish_dl(job, r, job.tag)
+            self._tick_observers(ctx["B"])
+            ctx["stage"] = 5
+        prof.batch_out(ctx["base"])
 
     def _materialize_payloads(self, ctx: dict, refs):
         """Replace PayloadRefs with real bit arrays from the host copy of
@@ -968,6 +993,8 @@ class LTESnifferCore:
         pb = pdsch_rx.dispatch_grants_batch(
             fe["grids"], fe["h"], fe["noise_var"], self.cell, pending,
             soft_buffers=self.soft_buffers, n_iter=self.cfg.turbo_iters)
+        prof.count("pdsch_grant", len(pending))
+        prof.count("pdsch_cb", sum(len(g[3]) for g in pb.group_rows))
         return [(fe, pending, pb)]
 
     def _finish_dl(self, job, res, t):
@@ -1648,7 +1675,8 @@ class LTESnifferCoreUL(LTESnifferCore):
         ctx, ul_grids, a, sf_idx = cur
         if self.cfg.draw_maps:
             from . import observability as obs_mod
-            pw = pusch_rx.make_power_map(self.cell)(ul_grids).cpu().numpy()
+            pw = prof.host_read("ul_power_map", pusch_rx.make_power_map(
+                self.cell)(ul_grids)).numpy()
             self.last_ul_power = pw
             for i in range(pw.shape[0]):
                 print(f"[ul pwr] {obs_mod.render_power_map(pw[i])}")

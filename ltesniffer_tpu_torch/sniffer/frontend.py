@@ -8,7 +8,6 @@ Counterpart of `ltesniffer_tpu/sniffer/frontend.py`; replaces
 """
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
@@ -17,6 +16,7 @@ from ltesniffer_tpu_torch.phy import grid as grid_mod
 from ltesniffer_tpu_torch.phy.params import CellConfig
 from ltesniffer_tpu_torch.kernels import chest, demapper, ofdm
 from ltesniffer_tpu_torch.kernels.cplx import const, to_ri
+from . import prof
 
 
 class Frontend:
@@ -106,6 +106,6 @@ class Frontend:
         return self.run_ri(self._unpack_i8(p8, scales, cfo), sf_idx)
 
 
-@functools.lru_cache(maxsize=16)
+@prof.factory(16)
 def make_frontend(cell: CellConfig) -> Frontend:
     return Frontend(cell)

@@ -9,7 +9,6 @@ call.  Counterpart of `ltesniffer_tpu/sniffer/pbch_rx.py`; replaces
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional
 
 import numpy as np
@@ -19,6 +18,7 @@ from ltesniffer_tpu_torch.phy import conv, crc, sequences
 from ltesniffer_tpu_torch.phy.params import CellConfig
 from ltesniffer_tpu_torch.kernels import chest, demapper, viterbi
 from ltesniffer_tpu_torch.kernels.cplx import const
+from . import prof
 
 PBCH_SYMS = (7, 8, 9, 10)      # subframe-0 symbols (slot 1, l=0..3)
 E_FRAME = 480                  # coded bits per radio frame
@@ -92,7 +92,7 @@ class MibResult:
     phich_length: int = 0
 
 
-@functools.lru_cache(maxsize=16)
+@prof.factory(16)
 def _make_decoder(cell: CellConfig):
     re_idx = pbch_re_indices(cell).astype(np.int64)
     scr = (1.0 - 2.0 * sequences.gold_sequence(cell.n_id_cell, E_TOTAL)
@@ -131,9 +131,9 @@ def _make_decoder(cell: CellConfig):
     return run
 
 
-def _host(bits) -> np.ndarray:
-    return bits.cpu().numpy() if isinstance(bits, torch.Tensor) \
-        else np.asarray(bits)
+def _host(bits, site: str) -> np.ndarray:
+    return (prof.host_read(site, bits).numpy()
+            if isinstance(bits, torch.Tensor) else np.asarray(bits))
 
 
 def decode_mib(grids_b, h_b, noise_var_b, cell: CellConfig) -> MibResult:
@@ -143,14 +143,16 @@ def decode_mib(grids_b, h_b, noise_var_b, cell: CellConfig) -> MibResult:
     0-dim tensor — one subframe of the frontend's batch, on its device.
     The only device->host transfer is the decoded-bit matrix."""
     return resolve_mib_bits(_host(_make_decoder(cell)(grids_b, h_b,
-                                                      noise_var_b)))
+                                                      noise_var_b),
+                                  "decode_mib"))
 
 
 def decode_mib_at(grids_B, h_B, noise_var_B, i: int,
                   cell: CellConfig) -> MibResult:
     """decode_mib on batch position ``i``."""
     return resolve_mib_bits(_host(dispatch_mib_at(grids_B, h_B,
-                                                  noise_var_B, i, cell)))
+                                                  noise_var_B, i, cell),
+                                  "decode_mib_at"))
 
 
 def dispatch_mib_at(grids_B, h_B, noise_var_B, i: int, cell: CellConfig):

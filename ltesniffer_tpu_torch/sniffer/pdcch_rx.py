@@ -24,7 +24,6 @@ bits and RNTIs.
 """
 from __future__ import annotations
 
-import functools
 from typing import Dict
 
 import numpy as np
@@ -35,9 +34,10 @@ from ltesniffer_tpu_torch.phy import search_space
 from ltesniffer_tpu_torch.phy.params import CellConfig
 from ltesniffer_tpu_torch.kernels import chest, demapper, ofdm, pdcch_tail
 from ltesniffer_tpu_torch.kernels.cplx import const, to_ri
+from . import prof
 
 
-@functools.lru_cache(maxsize=16)
+@prof.factory(16)
 def _static_maps(cell: CellConfig, cfi: int):
     """All constant index maps for one (cell, cfi)."""
     reg = grid_mod.control_region(cell, cfi)
@@ -152,7 +152,7 @@ def _size_consts_of(st):
     return pdcch_tail.SizeConsts(size_consts, locs)
 
 
-@functools.lru_cache(maxsize=8)
+@prof.factory(8)
 def make_unified_search(cell: CellConfig):
     """Blind search handling any per-subframe CFI as data: RE-gather
     tables and scrambling-sign masks for cfi 1..3 are stacked constants
@@ -221,7 +221,7 @@ def unpack_payload(words: np.ndarray, d_payload: int) -> np.ndarray:
     return bits.reshape(-1)[:d_payload]
 
 
-@functools.lru_cache(maxsize=16)
+@prof.factory(16)
 def _build_pipeline(cell: CellConfig, cfi: int):
     """The fixed-CFI blind search, for callers that know the CFI (the
     sharded path, tests): every subframe of the batch is searched with

@@ -18,7 +18,6 @@ pow2 row padding (there to bound compiled shapes) would only add work.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -34,11 +33,6 @@ from . import prof
 from .pdsch_rx import (LazyRow, _decode_tb_from_llrs, _derm_laps,
                        _derm_turbo_static_fn, _descramble, _gather_lazy_rows,
                        _stack_rows, _t, _turbo_only_fn)
-
-# device -> host reads of the batched path: one fused read per dispatched
-# batch, plus one per code-block size of an escalation
-HOST_READS = {"pusch": 0}
-
 
 class UlFrontend:
     """Batched UL demod: samples -> (B, RX, 14, n_sc, 2) float-pair grid on
@@ -62,12 +56,12 @@ class UlFrontend:
         return self.run_ri(x)
 
 
-@functools.lru_cache(maxsize=16)
+@prof.factory(16)
 def make_ul_frontend(cell: CellConfig) -> UlFrontend:
     return UlFrontend(cell)
 
 
-@functools.lru_cache(maxsize=16)
+@prof.factory(16)
 def make_power_map(cell: CellConfig):
     """(B, RX, 14, n_sc, 2) grid -> (B, n_prb) average PRB power in dB —
     the reference's per-PRB SubframePower map (`SubframePower.cc:18-74`,
@@ -93,7 +87,7 @@ class PuschResult:
     n_prb: int
 
 
-@functools.lru_cache(maxsize=8)
+@prof.factory(8)
 def _time_weights() -> np.ndarray:
     """(12, 2) interpolation weights from the 2 pilot symbols to the 12
     data symbols."""
@@ -105,7 +99,7 @@ def _time_weights() -> np.ndarray:
     return wt
 
 
-@functools.lru_cache(maxsize=64)
+@prof.factory(64)
 def _eq_batch_ul_fn(cell: CellConfig, n_prb: int, qm: int):
     """Batched UL equalize+despread+demap for one (n_prb, qm) group.
 
@@ -163,7 +157,7 @@ def _eq_batch_ul_fn(cell: CellConfig, n_prb: int, qm: int):
     return run
 
 
-@functools.lru_cache(maxsize=4096)
+@prof.factory(4096)
 def _dmrs_ri(n_prb: int, sf_idx: int, n_id_cell: int, cyclic_shift_cfg: int,
              dmrs_field: int) -> np.ndarray:
     """(2, m_sc, 2) float32 DMRS of one subframe's two pilot symbols."""
@@ -222,7 +216,7 @@ def decode_grant_ul(ul_grid_b, cell: CellConfig, sf_idx: int, rnti: int,
     llr, snr_db, ta_us = _eq_fn(cell, n_prb, qm)(
         ul_grid_b, torch.from_numpy(dmrs).to(dev),
         _k0(cell, prb_start, n_prb), c_init)
-    llr = llr.cpu().numpy()
+    llr = prof.host_read("ul_grant_llr", llr).numpy()
     if n_ri_syms or n_ack_syms or n_cqi_syms:
         cells_llr = llr.reshape(m_sc * 12, qm).copy()
         _, ack_cells = uci_mod.uci_positions(m_sc, qm, n_ri_syms, n_ack_syms)
@@ -411,62 +405,61 @@ def finish_grants_ul_batch(pb: PendingUlBatch, n_iter_esc: int = 0):
     if pb.fused_dev is None:
         return results
     with prof.span("pu_d2h"):
-        host = pb.fused_dev.cpu().numpy().astype(np.uint32)
-        HOST_READS["pusch"] += 1
-    _t0 = prof.time.perf_counter()
-    scal = host[:2 * pb.n_scal].view(np.float32).reshape(pb.n_scal, 2)
-    bits_of: Dict[Tuple[int, int], np.ndarray] = {}
-    rem_of: Dict[Tuple[int, int], int] = {}
-    r0 = 2 * pb.n_scal
-    for K, Wk, n, rows in pb.group_rows:
-        sub = host[r0:r0 + n * (1 + Wk)].reshape(n, 1 + Wk)
-        r0 += n * (1 + Wk)
-        bits = _unpack_bits(sub[:, 1:], K)
-        for r_i, key in enumerate(rows):
-            bits_of[key] = bits[r_i]
-            rem_of[key] = int(sub[r_i, 0])
+        host = prof.host_read("pu_d2h", pb.fused_dev).numpy().astype(
+            np.uint32)
+    with prof.span("pu_assemble"):
+        scal = host[:2 * pb.n_scal].view(np.float32).reshape(pb.n_scal, 2)
+        bits_of: Dict[Tuple[int, int], np.ndarray] = {}
+        rem_of: Dict[Tuple[int, int], int] = {}
+        r0 = 2 * pb.n_scal
+        for K, Wk, n, rows in pb.group_rows:
+            sub = host[r0:r0 + n * (1 + Wk)].reshape(n, 1 + Wk)
+            r0 += n * (1 + Wk)
+            bits = _unpack_bits(sub[:, 1:], K)
+            for r_i, key in enumerate(rows):
+                bits_of[key] = bits[r_i]
+                rem_of[key] = int(sub[r_i, 0])
 
-    def result(ji, tb_ok, tb_with_crc):
-        j = jobs[ji]
-        sr = pb.scalar_row[ji]
-        return PuschResult(
-            j.rnti, j.tbs, bool(tb_ok),
-            tb_with_crc[:j.tbs] if tb_ok else None,
-            float(scal[sr, 0]), float(scal[sr, 1]), j.n_prb)
+        def result(ji, tb_ok, tb_with_crc):
+            j = jobs[ji]
+            sr = pb.scalar_row[ji]
+            return PuschResult(
+                j.rnti, j.tbs, bool(tb_ok),
+                tb_with_crc[:j.tbs] if tb_ok else None,
+                float(scal[sr, 0]), float(scal[sr, 1]), j.n_prb)
 
-    def assemble(ji):
-        seg = pb.seg_of[ji]
-        cb_ok, parts = [], []
-        for ci_, K in enumerate(seg.K):
-            blk = bits_of[(ji, ci_)]
-            F = seg.F if ci_ == 0 else 0
-            if seg.C > 1:
-                cb_ok.append(rem_of[(ji, ci_)] == 0)
-                parts.append(blk[F:K - turbo_mod.SEG_CRC])
+        def assemble(ji):
+            seg = pb.seg_of[ji]
+            cb_ok, parts = [], []
+            for ci_, K in enumerate(seg.K):
+                blk = bits_of[(ji, ci_)]
+                F = seg.F if ci_ == 0 else 0
+                if seg.C > 1:
+                    cb_ok.append(rem_of[(ji, ci_)] == 0)
+                    parts.append(blk[F:K - turbo_mod.SEG_CRC])
+                else:
+                    parts.append(blk[F:])
+            tb_with_crc = np.concatenate(parts)[:seg.B]
+            tb_ok = (all(cb_ok)
+                     and crc.crc_bits(tb_with_crc, crc.CRC24A).sum() == 0)
+            return result(ji, tb_ok, tb_with_crc)
+
+        todo = [ji for ji in range(len(jobs))
+                if results[ji] is None and ji in pb.seg_of]
+        # single-code-block TBs (the common case) take a batched host CRC24A
+        # (one matmul per (K, F, B) family), as the DL batch does
+        singles: Dict[tuple, list] = {}
+        for ji in todo:
+            seg = pb.seg_of[ji]
+            if seg.C == 1:
+                singles.setdefault((seg.K[0], seg.F, seg.B), []).append(ji)
             else:
-                parts.append(blk[F:])
-        tb_with_crc = np.concatenate(parts)[:seg.B]
-        tb_ok = (all(cb_ok)
-                 and crc.crc_bits(tb_with_crc, crc.CRC24A).sum() == 0)
-        return result(ji, tb_ok, tb_with_crc)
-
-    todo = [ji for ji in range(len(jobs))
-            if results[ji] is None and ji in pb.seg_of]
-    # single-code-block TBs (the common case) take a batched host CRC24A
-    # (one matmul per (K, F, B) family), as the DL batch does
-    singles: Dict[tuple, list] = {}
-    for ji in todo:
-        seg = pb.seg_of[ji]
-        if seg.C == 1:
-            singles.setdefault((seg.K[0], seg.F, seg.B), []).append(ji)
-        else:
-            results[ji] = assemble(ji)
-    for (K, F, Bb), jis in singles.items():
-        tbw = np.stack([bits_of[(ji, 0)] for ji in jis])[:, F:F + Bb]
-        ok = crc.batched_crc_np(tbw, crc.CRC24A).sum(axis=1) == 0
-        for r_i, ji in enumerate(jis):
-            results[ji] = result(ji, ok[r_i], tbw[r_i])
-    prof.add("pu_assemble", prof.time.perf_counter() - _t0)
+                results[ji] = assemble(ji)
+        for (K, F, Bb), jis in singles.items():
+            tbw = np.stack([bits_of[(ji, 0)] for ji in jis])[:, F:F + Bb]
+            ok = crc.batched_crc_np(tbw, crc.CRC24A).sum(axis=1) == 0
+            for r_i, ji in enumerate(jis):
+                results[ji] = result(ji, ok[r_i], tbw[r_i])
     if n_iter_esc > 0:
         # escalate only grants where NO table variant passed (a sibling
         # variant's CRC pass means the failure is a wrong-table trial)
@@ -488,8 +481,8 @@ def finish_grants_ul_batch(pb: PendingUlBatch, n_iter_esc: int = 0):
                 for K, rows in sorted(by_k.items()):
                     d = _gather_lazy_rows([r[2] for r in rows], dev)
                     fused = _turbo_only_fn(K, n_iter_esc)(d)
-                    fused = fused.cpu().numpy().astype(np.uint32)
-                    HOST_READS["pusch"] += 1
+                    fused = prof.host_read("pu_escalate",
+                                           fused).numpy().astype(np.uint32)
                     bits = _unpack_bits(fused[:, 1:], K)
                     for r_i, (ji, ci_, _ref) in enumerate(rows):
                         bits_of[(ji, ci_)] = bits[r_i]

@@ -29,7 +29,7 @@ from ltesniffer_tpu.testing import encoder
 from ltesniffer_tpu_torch.kernels import cplx
 from ltesniffer_tpu_torch.phy import uci
 from ltesniffer_tpu_torch.phy.params import CellConfig
-from ltesniffer_tpu_torch.sniffer import pdsch_rx, pusch_rx
+from ltesniffer_tpu_torch.sniffer import pdsch_rx, prof, pusch_rx
 
 torch.set_num_threads(1)
 
@@ -348,10 +348,13 @@ def test_batched_ul_results_match():
     spec.append((1, 7, bad))
     res_r = ref_pusch.finish_grants_ul_batch(ref_pusch.dispatch_grants_ul_batch(
         jnp.asarray(ref_g), REF_CELL, _jobs(ref_pusch, spec), n_iter=2))
-    n0 = pusch_rx.HOST_READS["pusch"]
+    prof.reset()
     res_p = pusch_rx.finish_grants_ul_batch(pusch_rx.dispatch_grants_ul_batch(
         port_g, CELL, _jobs(pusch_rx, spec), n_iter=2))
-    assert pusch_rx.HOST_READS["pusch"] == n0 + 1
+    reads = {k: v for k, v in prof.counters().items()
+             if k.startswith("host_read.")}
+    assert reads == {"host_read.pu_d2h": {"total": 1, "events": 1}}
+    assert prof.report()["pu_assemble"]["n"] == 1
     assert [r.crc_ok for r in res_p] == [r.crc_ok for r in res_r] \
         == [True, True, True, False]
     for p, r, (_, _, g) in zip(res_p, res_r, spec):
