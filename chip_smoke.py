@@ -8,9 +8,9 @@ Drives `ltesniffer_tpu_torch` — the PyTorch port of the JAX package
 `ltesniffer_tpu` — through its main path on the card and fails (non-zero
 exit) if any phase fails:
 
-1. card and build: the card's name and power limit; build the five
+1. card and build: the card's name and power limit; build the six
    hand-written CUDA sources with nvcc and the native resolver with g++,
-   all six side by side: the fused whole-decode turbo kernel
+   all seven side by side: the fused whole-decode turbo kernel
    (kernels/csrc/turbo_decode.cu, the main path's decoder), the per-pass
    BCJR kernel (kernels/csrc/bcjr.cu, the earlier design), the
    tail-biting Viterbi of the blind search and the MIB
@@ -18,7 +18,8 @@ exit) if any phase fails:
    with the de-rate-match folded in), the two-codeword grant's eq/demap
    (kernels/csrc/mimo_eq_demap.cu), the search tail's packing kernel and
    the earlier route's de-rate-match and CRC / packing kernels
-   (kernels/csrc/pdcch_tail.cu) and the host resolver
+   (kernels/csrc/pdcch_tail.cu), the batched PDSCH path's
+   transport-block finish (kernels/csrc/tb_finish.cu) and the host resolver
    (csrc/resolver.cpp); their build times and ptxas registers/spills.
 2. kernels vs plain version: at the K values of the loaded cell's and the
    golden scenario's grants and K = 40 and 6144, n_iter 2 and 12, at the
@@ -98,6 +99,17 @@ exit) if any phase fails:
    card; phase 4 prints the constant cache after each of its three
    passes and fails if the third uploads anything; the profiled passes
    fail unless the tail makes 2 launches and 0 copies a call.
+2e. the transport-block finish (kernels/tb_finish.py) against its plain
+   version on the host, byte for byte (status words and payload bytes):
+   one batch of the E-TM 3.1 cell's shape (128 blocks, 320 code blocks of
+   K up to 5120) and of the loaded cell's (384 one-code-block blocks),
+   with planted faults, and the odd segmentations (fillers, mixed K, 13
+   and 16 code blocks, a skipped block); at the E-TM 3.1 shape the
+   kernel's time (CUDA events, the profiler's device time) beside its
+   byte bound, a batch's upload + launch + read on the host, the plain
+   version's time, and the kernel's registers and spills (none allowed).
+   From phase 3 on each path's tb_finish launches are reported; the
+   loaded cell's must equal its batched dispatches (`pdsch_tb_device`).
 3. golden: the golden scenario (tests/golden/dl_mode.pcap), built by the
    port's own generator, run on the card; the pcap's sha256 must equal.
 4. loaded cell at full width (20 MHz, 512 subframes, batch 256, with its
@@ -192,7 +204,8 @@ exit) if any phase fails:
    `pdcch_crc_pack`'s entries carry the launches of every path,
    `mimo_eq_demap`'s the launch chains of the profiled passes,
    `viterbi_search`'s phase 2d's cases, the tail call's steps and the
-   constant cache of phase 4's passes), then the result line.
+   constant cache of phase 4's passes; `tb_finish`'s phase 2e), then the
+   result line.
 
 Imports torch, numpy, the standard library and the port only — no JAX.
 Writes only under a temporary directory and ltesniffer_tpu_torch/_build/.
@@ -256,6 +269,9 @@ DERM_REPLACES = "ltesniffer_tpu/sniffer/pdcch_rx.py:81"
 PACK_REPLACES = "ltesniffer_tpu/sniffer/pdcch_rx.py:89"
 # the search entry replaces the de-rate-match with the Viterbi
 SEARCH_REPLACES = "ltesniffer_tpu/sniffer/pdcch_rx.py:81"
+# no TPU kernel: the JAX package finishes the blocks on the host
+# (finish_grants_batch :860, _assemble_tb :920, escalate_finish :1022)
+TB_FINISH_REPLACES = "ltesniffer_tpu/sniffer/pdsch_rx.py:860 (host code)"
 # the earlier route's times at one search call of the loaded cell: the
 # Viterbi's plain entry, pdcch_derm (CUDA events) and pdcch_crc_pack
 # (device time a launch): NVIDIA H100 80GB HBM3, 700 W (PERF.md, section 6)
@@ -1396,8 +1412,8 @@ def host_reads(*sites) -> int:
 
 def reset_counts():
     from ltesniffer_tpu_torch.kernels import bcjr, mimo_eq, pdcch_tail
-    from ltesniffer_tpu_torch.kernels import turbo_decode, viterbi
-    for m in (bcjr, mimo_eq, pdcch_tail, turbo_decode, viterbi):
+    from ltesniffer_tpu_torch.kernels import tb_finish, turbo_decode, viterbi
+    for m in (bcjr, mimo_eq, pdcch_tail, tb_finish, turbo_decode, viterbi):
         m.reset_launches()
     TAIL_CALLS["n"] = 0
 
@@ -1407,6 +1423,7 @@ TAIL_KERNELS = ("viterbi_search", "pdcch_pack", "pdcch_derm",
                 "pdcch_crc_pack")
 TAIL_LAUNCHES = {}   # path -> {"calls": search tails, kernel: launches}
 VIT_LAUNCHES = {}    # path -> the Viterbi's plain entry's launches
+TBF_LAUNCHES = {}    # path -> tb_finish launches (viterbi_count)
 
 
 def tail_counts() -> dict:
@@ -1442,20 +1459,23 @@ def viterbi_count(path: str) -> int:
     reset_counts(); fails if the path launched none or ran the plain step
     loop on the card.  Also records the path's eq/demap kernel launches in
     EQ_LAUNCHES and fails if it ran the plain eq/demap chain on the card,
-    and checks its search tails (`tail_check`)."""
-    from ltesniffer_tpu_torch.kernels import mimo_eq, pdcch_tail, viterbi
+    and checks its search tails (`tail_check`), and records its tb_finish
+    launches in TBF_LAUNCHES."""
+    from ltesniffer_tpu_torch.kernels import mimo_eq, pdcch_tail, tb_finish
+    from ltesniffer_tpu_torch.kernels import viterbi
     n_tb, n_s = viterbi.LAUNCHES["viterbi"], viterbi.LAUNCHES["viterbi_search"]
     n = n_tb + n_s
     p = viterbi.PLAIN_CUDA["viterbi"]
     EQ_LAUNCHES[path] = mimo_eq.LAUNCHES["mimo_eq_demap"]
     VIT_LAUNCHES[path] = n_tb
+    TBF_LAUNCHES[path] = tb_finish.LAUNCHES["tb_finish"]
     tail_check(path, TAIL_CALLS["n"], tail_counts(),
                sum(pdcch_tail.PLAIN_CUDA.values()))
     p_eq = mimo_eq.PLAIN_CUDA["mimo_eq_demap"]
     log(f"  {path}: viterbi_tb launches {n_tb} (plain entry) + {n_s} "
         f"(search entry), plain Viterbi step loops on the card {p}; "
         f"mimo_eq_demap launches {EQ_LAUNCHES[path]}, plain eq/demap chains"
-        f" on the card {p_eq}")
+        f" on the card {p_eq}; tb_finish launches {TBF_LAUNCHES[path]}")
     if p_eq != 0:
         raise AssertionError(f"{path} ran the plain eq/demap chain on the "
                              f"card {p_eq} times")
@@ -1465,6 +1485,94 @@ def viterbi_count(path: str) -> int:
         raise AssertionError(f"{path} ran the plain Viterbi step loop on "
                              f"the card {p} times")
     return n
+
+
+# ---------------------------------------------------------------------------
+# phase 2e: the transport-block finish against its plain version
+# ---------------------------------------------------------------------------
+def tb_held(name: str, device, fused, table) -> int:
+    """The kernel's output against the plain version's on the host, byte
+    for byte; returns the blocks whose TB check holds."""
+    import torch
+    from ltesniffer_tpu_torch.kernels import tb_finish
+    from ltesniffer_tpu_torch.testing import tb_rows
+    _h, desc = tb_finish.upload(table, "cpu")
+    want = tb_rows.defined(tb_finish.finish(fused, table, desc), table)
+    n0 = tb_finish.LAUNCHES["tb_finish"]
+    host, desc = tb_finish.upload(table, device)
+    got = tb_rows.defined(tb_finish.finish(fused.to(device), table, desc),
+                          table)
+    torch.cuda.synchronize()
+    if tb_finish.LAUNCHES["tb_finish"] != n0 + 1 or not host.is_pinned():
+        raise AssertionError(f"{name}: not one launch from a pinned table")
+    n_ok = sum(st & 1 for st in want[0])
+    log(f"  {name}: {table.n_tb} blocks, {len(table.cb)} code blocks, "
+        f"{n_ok} pass the TB check; kernel == plain version: {got == want}")
+    if got != want:
+        bad = [t for t in range(table.n_tb) if got[0][t] != want[0][t]]
+        raise AssertionError(f"{name}: the kernel differs from the plain "
+                             f"version (status words of blocks {bad[:8]})")
+    return n_ok
+
+
+def check_tb_finish(device, rng, card: str) -> dict:
+    """Phase 2e: tb_finish against its plain version at the E-TM 3.1 and
+    loaded shapes and the odd segmentations; its time, bound, registers."""
+    from ltesniffer_tpu_torch.kernels import nvcc_build, tb_finish
+    from ltesniffer_tpu_torch.testing import tb_rows
+    cases = {}
+    for name in ("etm31", "loaded"):
+        _specs, fused, table = tb_rows.shape(name, rng)
+        cases[name] = tb_held(name, device, fused, table)
+    specs = [(tbs, *tb_rows.blocks(tbs, rng, fault))
+             for tbs, fault in ((8, None), (528, "cb"), (6128, None),
+                                (12224, "tb"), (75376, None), (97896, None),
+                                (97896, "cb"), (16, None))]
+    fused, table = tb_rows.lay_out(specs, rng)
+    table.tb[-1][0] = 0                  # a skipped block
+    cases["odd"] = tb_held("odd segmentations", device, fused, table)
+    _specs, fused, table = tb_rows.shape("etm31", rng)
+    fd = fused.to(device)
+    host, desc = tb_finish.upload(table, device)
+    ms = time_cuda(lambda: tb_finish.finish_cuda(fd, table, desc), 50)
+    dev_ms, per_call = device_ms(
+        lambda: tb_finish.finish_cuda(fd, table, desc), ("tb_finish_kernel",))
+
+    def batch():
+        h, d = tb_finish.upload(table, device)
+        return tb_finish.finish_cuda(fd, table, d).cpu()
+    batch()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        batch()
+    host_ms = (time.perf_counter() - t0) / 50 * 1e3
+    _h, desc_c = tb_finish.upload(table, "cpu")
+    tb_finish.finish(fused, table, desc_c)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        tb_finish.finish(fused, table, desc_c)
+    plain_ms = (time.perf_counter() - t0) / 5 * 1e3
+    n_bytes = tb_finish.bytes_moved(table)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    sass = nvcc_build.sass_counts("tb_finish")
+    regs = nvcc_build.ptxas_report("tb_finish")
+    for fn, r, st, ld in regs:
+        log(f"  ptxas tb_finish: {r} registers, {st} / {ld} bytes spill "
+            f"stores / loads, {sass.get(fn, 'n/a')} SASS instructions")
+    if any(st or ld for _fn, _r, st, ld in regs):
+        raise AssertionError(f"tb_finish spills: {regs}")
+    log(f"  tb_finish at the E-TM 3.1 shape ({table.n_tb} blocks, "
+        f"{len(table.cb)} code blocks) on {card}: kernel {ms:.4f} ms (CUDA "
+        f"events), {dev_ms if dev_ms is None else round(dev_ms, 4)} ms "
+        f"device time ({per_call} records a call); bound {bound_ms:.6f} ms "
+        f"(bytes: {n_bytes} at 3.35 TB/s); upload + launch + read of a "
+        f"batch {host_ms:.4f} ms on the host; plain version on the host "
+        f"{plain_ms:.3f} ms")
+    return dict(cases=cases, ms=ms, device_ms=dev_ms, host_ms=host_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                bytes=n_bytes, registers=[r for _f, r, _s, _l in regs],
+                spill_bytes=sum(st + ld for _f, _r, st, ld in regs),
+                shape={"blocks": table.n_tb, "code_blocks": len(table.cb)})
 
 
 # ---------------------------------------------------------------------------
@@ -2258,7 +2366,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from ltesniffer_tpu_torch import native
     from ltesniffer_tpu_torch.kernels import bcjr, nvcc_build, turbo_decode
-    from ltesniffer_tpu_torch.kernels import mimo_eq, pdcch_tail, viterbi
+    from ltesniffer_tpu_torch.kernels import mimo_eq, pdcch_tail, tb_finish
+    from ltesniffer_tpu_torch.kernels import viterbi
     from ltesniffer_tpu_torch.phy import tables, turbo as turbo_host
     from ltesniffer_tpu_torch.io import sdr
     from ltesniffer_tpu_torch.sniffer import core, prof
@@ -2276,14 +2385,15 @@ def main() -> int:
             log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
                 f"device {kind}")
             # one compiler run for each source, all started together
-            with concurrent.futures.ThreadPoolExecutor(6) as ex:
+            with concurrent.futures.ThreadPoolExecutor(7) as ex:
                 builds = {m.__name__.rsplit(".", 1)[1]: ex.submit(m.build)
                           for m in (turbo_decode, bcjr, viterbi, mimo_eq,
-                                    pdcch_tail, native)}
+                                    pdcch_tail, tb_finish, native)}
             for name, mod in (("turbo_decode", "turbo_decode"),
                               ("bcjr", "bcjr"), ("viterbi_tb", "viterbi"),
                               ("mimo_eq_demap", "mimo_eq"),
-                              ("pdcch_tail", "pdcch_tail")):
+                              ("pdcch_tail", "pdcch_tail"),
+                              ("tb_finish", "tb_finish")):
                 log(f"  nvcc build of kernels/csrc/{name}.cu: "
                     f"{builds[mod].result():.2f} s")
                 sass = nvcc_build.sass_counts(name)
@@ -2418,6 +2528,8 @@ def main() -> int:
         with Phase("2d the search tail: the two-launch route vs the "
                    "three-launch route and the plain versions"):
             tt = check_pdcch_tail(device, loaded_stream, rng, card)
+        with Phase("2e the transport-block finish vs its plain version"):
+            tf = check_tb_finish(device, rng, card)
         with Phase("3 golden scenario on the card"):
             reset_counts()
             run_golden(device, tmp)
@@ -2461,6 +2573,16 @@ def main() -> int:
             if n_pass != 0:
                 raise AssertionError(f"the main path launched the pass "
                                      f"kernel {n_pass} times")
+            cnt = prof.counters()
+            n_tbf = tb_finish.LAUNCHES["tb_finish"]
+            dev_tb = cnt.get("pdsch_tb_device", {"total": 0, "events": 0})
+            log(f"  tb_finish launches {n_tbf}: {dev_tb['total']} blocks "
+                f"finished on the card in {dev_tb['events']} dispatches, "
+                f"{cnt.get('pdsch_tb_host', {'total': 0})['total']} on the "
+                "host (single-grant path)")
+            if n_tbf <= 0 or n_tbf != dev_tb["events"]:
+                raise AssertionError(f"tb_finish launched {n_tbf} times for "
+                                     f"{dev_tb['events']} batched dispatches")
             # the first pass pays one-time costs (constant tables, Gold
             # bases, first launches); a second pass reads the warm rate
             prof.reset()
@@ -2863,6 +2985,16 @@ def main() -> int:
                    if key == "viterbi_search" else {}),
                 **({"cases": tt[key]["cases"]}
                    if key == "pdcch_derm" else {})})
+        line["kernels"].append({
+            "name": "tb_finish", "route": "cuda",
+            "source": "ltesniffer_tpu_torch/kernels/csrc/tb_finish.cu",
+            "replaces": TB_FINISH_REPLACES,
+            "launches": TBF_LAUNCHES["loaded cell"], "max_abs_err": 0,
+            "library_ms": None,
+            **{k: tf[k] for k in ("ms", "device_ms", "host_ms", "plain_ms",
+                                  "bound_ms", "bound_by", "bytes", "shape",
+                                  "registers", "spill_bytes", "cases")},
+            "launches_per_path": dict(TBF_LAUNCHES)})
         log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

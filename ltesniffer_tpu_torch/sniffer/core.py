@@ -1006,13 +1006,13 @@ class LTESnifferCore:
             self.harq.report_crc(a.rnti, t["grant"].harq_pid, 0, crc_ok)
         payload = None
         if crc_ok and a.rnti == SIRNTI:
-            self._handle_sib(np.packbits(res.tb_bits).tobytes())
+            self._handle_sib(res.payload)
         if crc_ok:
             if (not t["is_special"]
                     and self.mcs.dl_table_of(a.rnti)
                     == trackers.McsTable.UNKNOWN):
                 self.mcs.learn_dl_table(a.rnti, t["table"])
-            payload = np.packbits(res.tb_bits).tobytes()
+            payload = res.payload
             self._emit_pdsch(a, payload, sfn, sf, crc_ok=True,
                              retx=1 if is_retx else 0)
             if RARNTI_START <= a.rnti <= RARNTI_END:
@@ -1137,7 +1137,7 @@ class LTESnifferCore:
         if not is_special:
             self.harq.report_crc(a.rnti, grant.harq_pid, 0, crc_ok)
         if res and res.crc_ok:
-            payload = np.packbits(res.tb_bits).tobytes()
+            payload = res.payload
             self._emit_pdsch(a, payload, sfn, sf, crc_ok=True,
                              retx=1 if is_retx else 0)
             if RARNTI_START <= a.rnti <= RARNTI_END:
@@ -1262,15 +1262,14 @@ class LTESnifferCore:
                 st.new_tx += 1
             if r.crc_ok:
                 st.success += 1
-                payload = np.packbits(r.tb_bits).tobytes()
+                payload = r.payload
                 self._emit_pdsch(a, payload, sfn, sf, crc_ok=True,
                                  retx=1 if is_retx else 0)
             else:
                 st.fail += 1
             self.results.append(AcceptedPdsch(
                 dci=a, crc_ok=r.crc_ok, tbs=r.tbs,
-                payload=(np.packbits(r.tb_bits).tobytes()
-                         if r.crc_ok else None),
+                payload=r.payload if r.crc_ok else None,
                 is_retx=is_retx, table=used_table))
 
     def _handle_sib(self, payload: bytes):

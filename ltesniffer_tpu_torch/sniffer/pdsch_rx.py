@@ -27,7 +27,7 @@ import torch
 from ltesniffer_tpu_torch.phy import crc, pdsch as pdsch_mod, sequences, turbo as turbo_mod
 from ltesniffer_tpu_torch.phy import uci as uci_mod
 from ltesniffer_tpu_torch.phy.params import CellConfig
-from ltesniffer_tpu_torch.kernels import chest, demapper, mimo_eq
+from ltesniffer_tpu_torch.kernels import chest, demapper, mimo_eq, tb_finish
 from ltesniffer_tpu_torch.kernels import turbo as kturbo
 from ltesniffer_tpu_torch.kernels.cplx import const
 from ltesniffer_tpu_torch.sniffer import prof
@@ -44,12 +44,6 @@ def _host(x, site: str) -> np.ndarray:
     """x on the host; a tensor through one read counted at `site`."""
     return (prof.host_read(site, x).numpy() if isinstance(x, torch.Tensor)
             else np.asarray(x))
-
-
-def _host_u32(x, site: str) -> np.ndarray:
-    """int64 device words holding u32 values -> host uint32, through one
-    read counted at `site`."""
-    return prof.host_read(site, x).numpy().astype(np.uint32)
 
 
 class LazyRow:
@@ -99,15 +93,47 @@ def _eq_demap_fn(cell: CellConfig, qm: int, n_re_pad: int, n_ports: int):
     return run
 
 
-@dataclasses.dataclass
 class PdschResult:
-    rnti: int
-    tbs: int
-    crc_ok: bool
-    tb_bits: Optional[np.ndarray]       # payload without TB CRC (on success)
-    cb_crc_ok: List[bool]
-    d_llrs: List[np.ndarray]            # per-CB (3, K+4) combined LLRs
-    n_re: int = 0
+    """One transport block's decode.  On success its payload (without the
+    TB CRC) is `payload`, bytes MSB first, as the MAC handlers and the pcap
+    take it: on the batched path straight from `tb_finish`'s buffer.
+    `tb_bits` is the same payload as 0/1 bits, derived from the bytes when
+    read; setting it makes those bits the payload."""
+    __slots__ = ("rnti", "tbs", "crc_ok", "cb_crc_ok", "d_llrs", "n_re",
+                 "_bits", "_bytes")
+
+    def __init__(self, rnti: int, tbs: int, crc_ok: bool,
+                 tb_bits: Optional[np.ndarray], cb_crc_ok: List[bool],
+                 d_llrs: List[np.ndarray], n_re: int = 0,
+                 payload: Optional[bytes] = None):
+        self.rnti, self.tbs, self.crc_ok = rnti, tbs, crc_ok
+        self.cb_crc_ok = cb_crc_ok
+        self.d_llrs = d_llrs                # per-CB (3, K+4) combined LLRs
+        self.n_re = n_re
+        self._bits, self._bytes = tb_bits, payload
+
+    @property
+    def tb_bits(self) -> Optional[np.ndarray]:
+        if self._bits is None and self._bytes is not None:
+            self._bits = np.unpackbits(np.frombuffer(self._bytes, np.uint8),
+                                       count=self.tbs)
+            self._bytes = None
+        return self._bits
+
+    @tb_bits.setter
+    def tb_bits(self, bits: Optional[np.ndarray]):
+        self._bits, self._bytes = bits, None
+
+    @property
+    def payload(self) -> Optional[bytes]:
+        if self._bits is not None:
+            return np.packbits(self._bits).tobytes()
+        return self._bytes
+
+    def __repr__(self):
+        return (f"PdschResult(rnti={self.rnti}, tbs={self.tbs}, "
+                f"crc_ok={self.crc_ok}, cb_crc_ok={self.cb_crc_ok}, "
+                f"n_re={self.n_re})")
 
 
 def decode_grant(grids, h, noise_var, b: int, cell: CellConfig, sf_idx: int,
@@ -315,6 +341,7 @@ def _finish_tb(seg, bits_per_cb, d_llrs, rnti, tbs, n_re, soft_buffers,
     if tb_ok and soft_buffers is not None and harq_key is not None:
         for ci_ in range(seg.C):
             soft_buffers.pop((harq_key, ci_), None)
+    prof.count("pdsch_tb_host")
     return PdschResult(rnti, tbs, bool(tb_ok), tb_bits, cb_ok, d_llrs, n_re)
 
 
@@ -629,6 +656,50 @@ class PendingPdschBatch:
     # n_iter straight from these, skipping equalize/de-rate-match)
     d_of: Dict[Tuple[int, int], object] = dataclasses.field(
         default_factory=dict)
+    # the `tb_finish` launch over fused_dev, read by `finish_grants_batch`
+    tb: Optional["TbFinish"] = None
+
+
+@dataclasses.dataclass
+class TbFinish:
+    """One `tb_finish` launch in flight: its descriptor table, the pinned
+    host buffer its descriptors were copied from (kept until `out` has
+    been read), its (n_out,) uint8 output on the device, ji -> block."""
+    table: tb_finish.Table
+    desc_host: Optional[torch.Tensor]
+    out: torch.Tensor
+    tb_of: Dict[int, int]
+
+
+def _launch_tb_finish(fused, table: tb_finish.Table,
+                      tb_of: Dict[int, int]) -> TbFinish:
+    desc_host, desc = tb_finish.upload(table, fused.device)
+    out = tb_finish.finish(fused, table, desc)
+    prof.count("pdsch_tb_device", table.n_tb)
+    return TbFinish(table, desc_host, out, tb_of)
+
+
+def _tb_results(pb: "PendingPdschBatch", tf: TbFinish, buf: np.ndarray,
+                soft_buffers) -> Dict[int, PdschResult]:
+    """ji -> PdschResult from a host copy `buf` of a `tb_finish` output:
+    each block's status word and payload bytes; drops the HARQ soft
+    buffers of blocks that passed."""
+    tf.desc_host = None
+    status = tf.table.status(buf)
+    out = {}
+    for ji, t in tf.tb_of.items():
+        j, seg, st = pb.jobs[ji], pb.seg_of[ji], int(status[t])
+        ok = bool(st & 1)
+        if ok and soft_buffers is not None and j.harq_key is not None:
+            for ci_ in range(seg.C):
+                soft_buffers.pop((j.harq_key, ci_), None)
+        off = tf.table.offset(t)
+        out[ji] = PdschResult(
+            j.rnti, j.tbs, ok, None,
+            [bool(st >> (1 + r) & 1) for r in range(seg.C)], [],
+            pb.n_re_of.get(ji, 0),
+            payload=buf[off:off + j.tbs // 8].tobytes() if ok else None)
+    return out
 
 
 def _t(x, dev, dtype=torch.int64):
@@ -643,8 +714,10 @@ def dispatch_grants_batch(grids, h, noise_var, cell: CellConfig,
     """Queue the full decode of many grants on the device; no host reads.
 
     Equalize/demap runs once per (qm, RE-bucket) group; de-rate-match +
-    HARQ combine + turbo + CB CRC + packing run per code-block size K.
-    Every output the host needs returns in ONE fused int64 tensor.
+    HARQ combine + turbo + CB CRC + packing run per code-block size K;
+    one `tb_finish` launch then checks every transport block's CRCs and
+    writes its payload bytes.  Every output the host needs returns in ONE
+    uint8 buffer (`pb.tb.out`).
     """
     dev = grids.device
     results: List[Optional[PdschResult]] = [None] * len(jobs)
@@ -739,6 +812,8 @@ def dispatch_grants_batch(grids, h, noise_var, cell: CellConfig,
     # --- collect code blocks, grouped by K ------------------------------
     with prof.span("pd_collect_cb"):
         seg_of: Dict[int, object] = {}
+        table = tb_finish.Table()
+        tb_of: Dict[int, int] = {}
         # K -> [(ji, ci, F, E, off, rv, key, rt)]
         by_k: Dict[int, list] = {}
         all_job_groups = ([(k[0], jis) for k, jis in fast_groups.items()]
@@ -749,6 +824,7 @@ def dispatch_grants_batch(grids, h, noise_var, cell: CellConfig,
                 Gbits = len(meta[ji]) * qm
                 seg = turbo_mod.segment_sizes(j.tbs)
                 seg_of[ji] = seg
+                tb_of[ji] = table.add(j.tbs, seg)
                 es = pdsch_mod.cb_rate_match_sizes(Gbits, seg.C, j.qm)
                 off = 0
                 for ci_, (K, E) in enumerate(zip(seg.K, es)):
@@ -763,6 +839,7 @@ def dispatch_grants_batch(grids, h, noise_var, cell: CellConfig,
     # --- per-K device dispatch -------------------------------------------
     group_rows = []
     fused_parts = []               # flat 1-D segments, one per sub-group
+    fused_off = 0                  # their words so far
     d_of: Dict[Tuple[int, int], LazyRow] = {}
     last_occ: Dict = {}            # key_ci -> LAST (time-ordered) (ji, ci)
     for K, rows in sorted(by_k.items()):
@@ -829,9 +906,10 @@ def dispatch_grants_batch(grids, h, noise_var, cell: CellConfig,
                              else None)
                     fused, d = fn(rows_mat, _t(rows_idx, dev),
                                   _t(e_true, dev), off, prior)
-                for r_i, (ji, ci_, _F, E, _off, _rv, key_ci, _rt) \
-                        in enumerate(sub):
+                for r_i, (ji, ci_, *_rest) in enumerate(sub):
                     d_of[(ji, ci_)] = LazyRow(d, r_i)
+                    table.set_row(tb_of[ji], ci_, fused_off + r_i * (1 + Wk))
+                fused_off += int(fused.shape[0])
                 fused_parts.append(fused)
                 group_rows.append((K, Wk, n_b,
                                    [(r[0], r[1], r[2]) for r in sub]))
@@ -845,96 +923,27 @@ def dispatch_grants_batch(grids, h, noise_var, cell: CellConfig,
     for key, jici in last_occ.items():
         soft_buffers[key] = d_of[jici]
     fused_dev = (torch.cat(fused_parts) if len(fused_parts) > 1
-                 else fused_parts[0]) if fused_parts else None
+                 else fused_parts[0])
     return PendingPdschBatch(jobs, results, seg_of, group_rows, fused_dev,
-                             n_re_of, d_of=d_of)
+                             n_re_of, d_of=d_of,
+                             tb=_launch_tb_finish(fused_dev, table, tb_of))
 
 
 def finish_grants_batch(pb: PendingPdschBatch,
                         soft_buffers: Optional[Dict] = None,
                         site: str = "pf_d2h") -> List[PdschResult]:
-    """Read the fused result words (one read, counted at `site`) and
-    assemble per-job PdschResults (TB CRC24A + reassembly on host; MAC
-    payloads need host bits anyway)."""
-    jobs, results = pb.jobs, pb.results
-    if pb.fused_dev is None:
+    """Read the batch's `tb_finish` output (one read, counted at `site`)
+    and make per-job PdschResults from each block's status word and
+    payload bytes."""
+    results = pb.results
+    if pb.tb is None:
         return results
     with prof.span("pf_d2h"):
-        host = _host_u32(pb.fused_dev, site)  # ONE read for the whole batch
+        buf = _host(pb.tb.out, site)     # ONE read for the whole batch
     with prof.span("pf_assemble"):
-        bits_of: Dict[Tuple[int, int], np.ndarray] = {}
-        rem_of: Dict[Tuple[int, int], int] = {}
-        shifts = np.arange(32, dtype=np.uint32)
-        r0 = 0
-        for K, Wk, n_b, rows in pb.group_rows:
-            n = len(rows)
-            w = 1 + Wk
-            sub = host[r0:r0 + n_b * w].reshape(n_b, w)[:n]
-            r0 += n_b * w
-            packed = sub[:, 1:1 + Wk]
-            bits = ((packed[:, :, None] >> shifts) & 1).astype(np.uint8)
-            bits = bits.reshape(n, Wk * 32)[:, :K]
-            for r_i, (ji, ci_, F) in enumerate(rows):
-                bits_of[(ji, ci_)] = bits[r_i]
-                rem_of[(ji, ci_)] = int(sub[r_i, 0])
-        # single-code-block TBs (the common case) take a BATCHED host
-        # CRC24A: one f32 matmul per (K, F, tbs) family instead of a per-TB
-        # python loop
-        singles: Dict[tuple, list] = {}
-        for ji, j in enumerate(jobs):
-            if results[ji] is not None or ji not in pb.seg_of:
-                continue
-            seg = pb.seg_of[ji]
-            if seg.C == 1:
-                singles.setdefault((seg.K[0], seg.F, seg.B, j.tbs),
-                                   []).append(ji)
-            else:
-                results[ji] = _assemble_tb(pb, ji, bits_of, rem_of,
-                                           soft_buffers)
-        for (K, F, Bb, tbs), jis in singles.items():
-            blks = np.stack([bits_of[(ji, 0)] for ji in jis])
-            tbw = blks[:, F:F + Bb]
-            ok = crc.batched_crc_np(tbw, crc.CRC24A).sum(axis=1) == 0
-            for r_i, ji in enumerate(jis):
-                j = jobs[ji]
-                tb_ok = bool(ok[r_i])
-                if (tb_ok and soft_buffers is not None
-                        and j.harq_key is not None):
-                    soft_buffers.pop((j.harq_key, 0), None)
-                results[ji] = PdschResult(
-                    j.rnti, j.tbs, tb_ok,
-                    tbw[r_i, :tbs] if tb_ok else None, [True], [],
-                    pb.n_re_of.get(ji, 0))
+        for ji, r in _tb_results(pb, pb.tb, buf, soft_buffers).items():
+            results[ji] = r
     return results
-
-
-def _assemble_tb(pb: PendingPdschBatch, ji: int, bits_of, rem_of,
-                 soft_buffers) -> PdschResult:
-    """Reassemble one job's transport block from per-CB hard bits + CB CRC
-    remainders; TB CRC24A on host; pop HARQ buffers on success."""
-    j = pb.jobs[ji]
-    seg = pb.seg_of[ji]
-    cb_ok, parts = [], []
-    for ci_, K in enumerate(seg.K):
-        blk = bits_of[(ji, ci_)]
-        F = seg.F if ci_ == 0 else 0
-        if seg.C > 1:
-            ok = rem_of[(ji, ci_)] == 0
-            data = blk[F:K - turbo_mod.SEG_CRC]
-        else:
-            ok = True
-            data = blk[F:]
-        cb_ok.append(bool(ok))
-        parts.append(data)
-    tb_with_crc = np.concatenate(parts)[:seg.B]
-    tb_ok = (all(cb_ok)
-             and crc.crc_bits(tb_with_crc, crc.CRC24A).sum() == 0)
-    tb_bits = tb_with_crc[:j.tbs] if tb_ok else None
-    if tb_ok and soft_buffers is not None and j.harq_key is not None:
-        for ci_ in range(seg.C):
-            soft_buffers.pop((j.harq_key, ci_), None)
-    return PdschResult(j.rnti, j.tbs, bool(tb_ok), tb_bits,
-                       cb_ok, [], pb.n_re_of.get(ji, 0))
 
 
 def _gather_lazy_rows(refs: List, device):
@@ -969,55 +978,47 @@ def escalate_dispatch(pb: PendingPdschBatch, esc_idx: List[int],
                       n_iter: int):
     """Queue the iteration-escalation re-decode of CRC-failed jobs on the
     device (straight from the stored combined LLRs, no re-equalize /
-    de-rate-match).  Returns a handle for `escalate_finish` (None if
-    nothing to escalate) — the batched analog of srsRAN's per-CB
-    early-stop under the reference's 12-iteration cap
-    (`SubframeWorker.cc:365`), finished one pipeline phase later."""
+    de-rate-match), then one `tb_finish` launch over the re-decoded rows.
+    Returns a handle for `escalate_finish` (None if nothing to escalate)
+    — the batched analog of srsRAN's per-CB early-stop under the
+    reference's 12-iteration cap (`SubframeWorker.cc:365`), finished one
+    pipeline phase later."""
+    table = tb_finish.Table()
+    tb_of: Dict[int, int] = {}
     by_k: Dict[int, list] = {}
     for ji in esc_idx:
         seg = pb.seg_of.get(ji)
-        if seg is None:
+        if seg is None or any((ji, ci_) not in pb.d_of
+                              for ci_ in range(seg.C)):
             continue
+        tb_of[ji] = table.add(pb.jobs[ji].tbs, seg)
         for ci_, K in enumerate(seg.K):
-            ref = pb.d_of.get((ji, ci_))
-            if ref is not None:
-                by_k.setdefault(K, []).append((ji, ci_, ref))
-    pend = []
+            by_k.setdefault(K, []).append((ji, ci_, pb.d_of[(ji, ci_)]))
     prof.count("pdsch_cb_escalated", sum(len(r) for r in by_k.values()))
+    if not tb_of:
+        return None
+    parts, off = [], 0
     for K, rows in sorted(by_k.items()):
         d = _gather_lazy_rows([r[2] for r in rows], pb.fused_dev.device)
-        pend.append((K, rows, _turbo_only_fn(K, n_iter)(d)))
-    if not pend:
-        return None
-    return {"pend": pend, "esc_idx": list(esc_idx)}
+        fused = _turbo_only_fn(K, n_iter)(d)
+        for r_i, (ji, ci_, _) in enumerate(rows):
+            table.set_row(tb_of[ji], ci_, off + r_i * int(fused.shape[1]))
+        off += fused.numel()
+        parts.append(fused.reshape(-1))
+    return _launch_tb_finish(torch.cat(parts) if len(parts) > 1
+                             else parts[0], table, tb_of)
 
 
 def escalate_finish(pb: PendingPdschBatch, h,
                     soft_buffers: Optional[Dict] = None) -> int:
-    """Read the escalation results; apply fixed results to `pb.results`
-    in place; returns the number of jobs flipped to CRC-ok."""
+    """Read the escalation's `tb_finish` output (one read); apply fixed
+    results to `pb.results` in place; returns the number of jobs flipped
+    to CRC-ok."""
     if h is None:
         return 0
-    bits_of: Dict[Tuple[int, int], np.ndarray] = {}
-    rem_of: Dict[Tuple[int, int], int] = {}
-    shifts = np.arange(32, dtype=np.uint32)
-    for K, rows, fused in h["pend"]:
-        host = _host_u32(fused, "escalate_join")[:len(rows)]
-        Wk = (K + 31) // 32
-        packed = host[:, 1:1 + Wk]
-        bits = ((packed[:, :, None] >> shifts) & 1).astype(np.uint8)
-        bits = bits.reshape(len(rows), Wk * 32)[:, :K]
-        for r_i, (ji, ci_, _) in enumerate(rows):
-            bits_of[(ji, ci_)] = bits[r_i]
-            rem_of[(ji, ci_)] = int(host[r_i, 0])
     n_fixed = 0
-    for ji in h["esc_idx"]:
-        if ji not in pb.seg_of:
-            continue
-        if any((ji, ci_) not in bits_of
-               for ci_ in range(pb.seg_of[ji].C)):
-            continue
-        r2 = _assemble_tb(pb, ji, bits_of, rem_of, soft_buffers)
+    buf = _host(h.out, "escalate_join")
+    for ji, r2 in _tb_results(pb, h, buf, soft_buffers).items():
         if r2.crc_ok:
             pb.results[ji] = r2
             n_fixed += 1

@@ -832,3 +832,106 @@ def test_pdcch_tail_on_second_card(two_cards):
             if k == "cand_pay":
                 g, w = g.view(np.uint32), w.astype(np.uint32)
             np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+# --- tb_finish: the transport-block finish of the batched PDSCH path --------
+def _tb_finish_both(card, fused, table):
+    """(kernel output on the card, plain version's on the host), each as
+    `tb_rows.defined`."""
+    from ltesniffer_tpu_torch.kernels import tb_finish
+    from ltesniffer_tpu_torch.testing import tb_rows
+    _h, desc = tb_finish.upload(table, "cpu")
+    want = tb_finish.finish(fused, table, desc)
+    n0 = tb_finish.LAUNCHES["tb_finish"]
+    host, desc = tb_finish.upload(table, card)
+    got = tb_finish.finish(fused.to(card), table, desc)
+    torch.cuda.synchronize()
+    assert host.is_pinned()
+    assert tb_finish.LAUNCHES["tb_finish"] == n0 + 1
+    return tb_rows.defined(got, table), tb_rows.defined(want, table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["etm31", "loaded", "odd"])
+def test_tb_finish_kernel_equals_plain(card, name):
+    """The kernel against its plain version, byte for byte (status words
+    and payloads), at one batch of the E-TM 3.1 and the loaded cell with
+    planted faults, and at the odd segmentations (fillers, mixed K, 13
+    and 16 code blocks, a block with tbs 0 in the table)."""
+    from ltesniffer_tpu_torch.testing import tb_rows
+    rng = np.random.default_rng(len(name))
+    if name == "odd":
+        specs = [(tbs, *tb_rows.blocks(tbs, rng, fault))
+                 for tbs, fault in ((8, None), (528, "cb"), (6128, None),
+                                    (12224, "tb"), (75376, None),
+                                    (97896, None), (97896, "cb"))]
+        fused, table = tb_rows.lay_out(specs, rng)
+        table.tb[1][0] = 0
+    else:
+        specs, fused, table = tb_rows.shape(name, rng)
+    got, want = _tb_finish_both(card, fused, table)
+    assert got == want
+    ok = [st & 1 for st in want[0]]
+    assert 0 < sum(ok) < table.n_tb
+
+
+@pytest.mark.cuda
+def test_tb_finish_launches_once_per_dispatch(card):
+    """On the card the batched path's primary dispatch, its escalation
+    and a table retry's dispatch each launch tb_finish once, and each
+    output equals the plain version's over the same rows."""
+    from ltesniffer_tpu_torch.kernels import tb_finish
+    from ltesniffer_tpu_torch.sniffer import pdsch_rx
+    from ltesniffer_tpu_torch.testing import tb_rows
+    grids, h, nv, jobs, sent = tb_rows.etm31_grants(
+        2, 0.12, np.random.default_rng(31))
+    grids, h, nv = grids.to(card), h.to(card), nv.to(card)
+    n0 = tb_finish.LAUNCHES["tb_finish"]
+    pb = pdsch_rx.dispatch_grants_batch(grids, h, nv, tb_rows.ETM_CELL, jobs,
+                                        soft_buffers={}, n_iter=2)
+    assert tb_finish.LAUNCHES["tb_finish"] == n0 + 1
+    _h, desc = tb_finish.upload(pb.tb.table, "cpu")
+    want = tb_finish.finish(pb.fused_dev.cpu(), pb.tb.table, desc)
+    assert tb_rows.defined(pb.tb.out, pb.tb.table) \
+        == tb_rows.defined(want, pb.tb.table)
+    res = pdsch_rx.finish_grants_batch(pb)
+    assert all(r.payload == s for r, s in zip(res, sent) if r.crc_ok)
+    failed = [i for i, r in enumerate(res) if not r.crc_ok]
+    assert failed
+    h_esc = pdsch_rx.escalate_dispatch(pb, failed, 12)
+    assert tb_finish.LAUNCHES["tb_finish"] == n0 + 2
+    pdsch_rx.escalate_finish(pb, h_esc)
+    assert all(r.payload == s for r, s in zip(pb.results, sent) if r.crc_ok)
+    rpb = pdsch_rx.dispatch_grants_batch(grids, h, nv, tb_rows.ETM_CELL,
+                                         jobs[:4], n_iter=8)
+    assert tb_finish.LAUNCHES["tb_finish"] == n0 + 3
+    pdsch_rx.finish_grants_batch(rpb, site="retry_join")
+
+
+@pytest.mark.cuda
+def test_tb_finish_upload_does_not_synchronize(card):
+    """The descriptor upload (a pinned buffer, non_blocking) and the
+    launch make no synchronizing call once the CRC table is on the card."""
+    import os
+    import warnings
+    from ltesniffer_tpu_torch.kernels import tb_finish
+    from ltesniffer_tpu_torch.testing import tb_rows
+    _specs, fused, table = tb_rows.shape("etm31", np.random.default_rng(2))
+    fused = fused.to(card)
+    tb_finish.finish(fused, table, tb_finish.upload(table, card)[1])
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            host, desc = tb_finish.upload(table, card)
+            tb_finish.finish(fused, table, desc)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert host.is_pinned()
+    # torch's own frame switching the mode back is not the port's call
+    port = os.path.dirname(tb_finish.__file__).rsplit(os.sep, 1)[0]
+    syncs = [(w.filename, w.lineno) for w in caught
+             if "synchroniz" in str(w.message)]
+    assert not [f for f in syncs if f[0].startswith(port)], syncs

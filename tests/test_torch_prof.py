@@ -296,19 +296,25 @@ def test_core_counts_host_reads_and_pdsch_work(loaded12):
 
 
 def test_escalation_counts_code_blocks():
+    from ltesniffer_tpu_torch.phy import turbo as turbo_mod
     from ltesniffer_tpu_torch.sniffer import pdsch_rx
-    seg = types.SimpleNamespace(K=[40, 40], C=2)
-    d = torch.zeros((3, 3, 44))
+    segs = {0: turbo_mod.segment_sizes(6200), 1: turbo_mod.segment_sizes(16)}
+    assert segs[0].K == [3136, 3136] and segs[1].K == [40]
+    jobs = [pdsch_rx.GrantJob(b=0, sf_idx=1, cfi=2, rnti=0x100 + ji,
+                              prb_mask=np.ones(4, bool), qm=2, tbs=tbs)
+            for ji, tbs in ((0, 6200), (1, 16))]
+    da, db = torch.zeros((2, 3, 3140)), torch.zeros((1, 3, 44))
     pb = pdsch_rx.PendingPdschBatch(
-        jobs=[], results=[], seg_of={0: seg, 1: types.SimpleNamespace(
-            K=[40], C=1)},
-        group_rows=[], fused_dev=d,
-        d_of={(0, 0): pdsch_rx.LazyRow(d, 0), (0, 1): pdsch_rx.LazyRow(d, 1),
-              (1, 0): pdsch_rx.LazyRow(d, 2)})
+        jobs=jobs, results=[None, None], seg_of=segs, group_rows=[],
+        fused_dev=da,
+        d_of={(0, 0): pdsch_rx.LazyRow(da, 0), (0, 1): pdsch_rx.LazyRow(da, 1),
+              (1, 0): pdsch_rx.LazyRow(db, 0)})
     h = pdsch_rx.escalate_dispatch(pb, [0, 1], 2)
-    assert prof.counters()["pdsch_cb_escalated"] == {"total": 3, "events": 1}
-    # one read per code-block size (here one), before any reassembly
-    pdsch_rx.escalate_finish(pb, dict(h, esc_idx=[]))
+    c = prof.counters()
+    assert c["pdsch_cb_escalated"] == {"total": 3, "events": 1}
+    assert c["pdsch_tb_device"] == {"total": 2, "events": 1}
+    # one read per escalation (here two code-block sizes), by tb_finish
+    pdsch_rx.escalate_finish(pb, h)
     assert prof.counters()["host_read.escalate_join"]["events"] == 1
 
 
@@ -433,6 +439,7 @@ def test_host_read_counter_is_honest_on_the_card():
     events) or a known hidden sync of HIDDEN_SYNCS."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    from ltesniffer_tpu_torch.kernels import tb_finish
     from ltesniffer_tpu_torch.sniffer import core
     from ltesniffer_tpu_torch.testing import loaded_cell
     n_sf = 160
@@ -471,6 +478,10 @@ def test_host_read_counter_is_honest_on_the_card():
         print(f"  hidden sync {f}:{fn}: {k}")
     assert at_read == reads > 0
     assert set(hidden) <= set(HIDDEN_SYNCS), sorted(hidden)
+    # the transport-block finish's descriptor upload is not a hidden sync
+    # (a pinned buffer, non_blocking; `_t` above would hide it otherwise)
+    assert tb_finish.LAUNCHES["tb_finish"] > 0
+    assert not [k for k in hidden if k[0].endswith("kernels/tb_finish.py")]
 
 
 @pytest.mark.cuda
