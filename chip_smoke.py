@@ -8,9 +8,9 @@ Drives `ltesniffer_tpu_torch` — the PyTorch port of the JAX package
 `ltesniffer_tpu` — through its main path on the card and fails (non-zero
 exit) if any phase fails:
 
-1. card and build: the card's name and power limit; build the six
+1. card and build: the card's name and power limit; build the seven
    hand-written CUDA sources with nvcc and the native resolver with g++,
-   all seven side by side: the fused whole-decode turbo kernel
+   all eight side by side: the fused whole-decode turbo kernel
    (kernels/csrc/turbo_decode.cu, the main path's decoder), the per-pass
    BCJR kernel (kernels/csrc/bcjr.cu, the earlier design), the
    tail-biting Viterbi of the blind search and the MIB
@@ -19,7 +19,8 @@ exit) if any phase fails:
    (kernels/csrc/mimo_eq_demap.cu), the search tail's packing kernel and
    the earlier route's de-rate-match and CRC / packing kernels
    (kernels/csrc/pdcch_tail.cu), the batched PDSCH path's
-   transport-block finish (kernels/csrc/tb_finish.cu) and the host resolver
+   transport-block finish (kernels/csrc/tb_finish.cu) and single-layer
+   eq/demap (kernels/csrc/pdsch_eq_demap.cu), and the host resolver
    (csrc/resolver.cpp); their build times and ptxas registers/spills.
 2. kernels vs plain version: at the K values of the loaded cell's and the
    golden scenario's grants and K = 40 and 6144, n_iter 2 and 12, at the
@@ -110,6 +111,20 @@ exit) if any phase fails:
    version's time, and the kernel's registers and spills (none allowed).
    From phase 3 on each path's tb_finish launches are reported; the
    loaded cell's must equal its batched dispatches (`pdsch_tb_device`).
+2f. the batched single-layer eq/demap (kernels/pdsch_eq.py) against its
+   plain version on the same card tensors and on the host, within
+   testing/eq_grants.py's tolerance (expected: equal floats), every
+   variant in one launch each: PRB-list and table grants of qm 2/4/6/8,
+   1/2/4 ports, 1 and 2 RX, centre PRBs at subframes 0 and 5, two slot
+   masks, p_a != 1, one batch of the loaded cell (1 and 2 RX) and of the
+   E-TM 3.1 cell; the largest absolute and relative error and the floats
+   that differ; at the loaded batch the kernel's time (CUDA events, the
+   profiler's device time) beside its byte bound, the plain chain's on
+   the card (the parent's route), one dispatch's descriptor build +
+   upload + launch on the host, registers and spills (none allowed).
+   From phase 3 on every path must run the plain eq/demap chain on the
+   card no time; each path's launches are reported; the loaded cell's
+   must equal its batched dispatches and single-grant decodes.
 3. golden: the golden scenario (tests/golden/dl_mode.pcap), built by the
    port's own generator, run on the card; the pcap's sha256 must equal.
 4. loaded cell at full width (20 MHz, 512 subframes, batch 256, with its
@@ -134,7 +149,8 @@ exit) if any phase fails:
    profiled passes (4b, 5b, 6b) also count the CUDA launches and copies
    of each of the port's launch chains (`CHAINS`: the SISO eq/demap and
    its batched forms, the two-codeword eq/demap, the UL eq/demap, the
-   search tail) over the pass.
+   search tail) over the pass; the batched SISO chains
+   (`_eq_demap_batch_fn`, `_eq_demap_prb_fn`) must launch nothing.
 6. the uplink: the UL golden scenario (tests/golden/ul_mode.pcap), built
    by the port's generator, through `LTESnifferCoreUL.run_dual_samples`
    on the card (sha256 equal); the bench's UL cell at full width (20 MHz,
@@ -204,7 +220,8 @@ exit) if any phase fails:
    `pdcch_crc_pack`'s entries carry the launches of every path,
    `mimo_eq_demap`'s the launch chains of the profiled passes,
    `viterbi_search`'s phase 2d's cases, the tail call's steps and the
-   constant cache of phase 4's passes; `tb_finish`'s phase 2e), then the
+   constant cache of phase 4's passes; `tb_finish`'s phase 2e;
+   `pdsch_eq_demap`'s phase 2f and every path's launches), then the
    result line.
 
 Imports torch, numpy, the standard library and the port only — no JAX.
@@ -272,6 +289,8 @@ SEARCH_REPLACES = "ltesniffer_tpu/sniffer/pdcch_rx.py:81"
 # no TPU kernel: the JAX package finishes the blocks on the host
 # (finish_grants_batch :860, _assemble_tb :920, escalate_finish :1022)
 TB_FINISH_REPLACES = "ltesniffer_tpu/sniffer/pdsch_rx.py:860 (host code)"
+PDSCH_EQ_REPLACES = ("ltesniffer_tpu/sniffer/pdsch_rx.py:294 _eq_demap_batch_fn"
+                     ", :336 _reorg_fn, :357 _eq_demap_prb_fn (XLA)")
 # the earlier route's times at one search call of the loaded cell: the
 # Viterbi's plain entry, pdcch_derm (CUDA events) and pdcch_crc_pack
 # (device time a launch): NVIDIA H100 80GB HBM3, 700 W (PERF.md, section 6)
@@ -1412,8 +1431,10 @@ def host_reads(*sites) -> int:
 
 def reset_counts():
     from ltesniffer_tpu_torch.kernels import bcjr, mimo_eq, pdcch_tail
-    from ltesniffer_tpu_torch.kernels import tb_finish, turbo_decode, viterbi
-    for m in (bcjr, mimo_eq, pdcch_tail, tb_finish, turbo_decode, viterbi):
+    from ltesniffer_tpu_torch.kernels import pdsch_eq, tb_finish
+    from ltesniffer_tpu_torch.kernels import turbo_decode, viterbi
+    for m in (bcjr, mimo_eq, pdcch_tail, pdsch_eq, tb_finish, turbo_decode,
+              viterbi):
         m.reset_launches()
     TAIL_CALLS["n"] = 0
 
@@ -1424,6 +1445,7 @@ TAIL_KERNELS = ("viterbi_search", "pdcch_pack", "pdcch_derm",
 TAIL_LAUNCHES = {}   # path -> {"calls": search tails, kernel: launches}
 VIT_LAUNCHES = {}    # path -> the Viterbi's plain entry's launches
 TBF_LAUNCHES = {}    # path -> tb_finish launches (viterbi_count)
+PEQ_LAUNCHES = {}    # path -> pdsch_eq_demap launches (viterbi_count)
 
 
 def tail_counts() -> dict:
@@ -1460,22 +1482,30 @@ def viterbi_count(path: str) -> int:
     loop on the card.  Also records the path's eq/demap kernel launches in
     EQ_LAUNCHES and fails if it ran the plain eq/demap chain on the card,
     and checks its search tails (`tail_check`), and records its tb_finish
-    launches in TBF_LAUNCHES."""
-    from ltesniffer_tpu_torch.kernels import mimo_eq, pdcch_tail, tb_finish
-    from ltesniffer_tpu_torch.kernels import viterbi
+    and batched SISO eq/demap launches in TBF_LAUNCHES and PEQ_LAUNCHES,
+    failing if it ran the plain SISO eq/demap chain on the card."""
+    from ltesniffer_tpu_torch.kernels import mimo_eq, pdcch_tail, pdsch_eq
+    from ltesniffer_tpu_torch.kernels import tb_finish, viterbi
     n_tb, n_s = viterbi.LAUNCHES["viterbi"], viterbi.LAUNCHES["viterbi_search"]
     n = n_tb + n_s
     p = viterbi.PLAIN_CUDA["viterbi"]
     EQ_LAUNCHES[path] = mimo_eq.LAUNCHES["mimo_eq_demap"]
     VIT_LAUNCHES[path] = n_tb
     TBF_LAUNCHES[path] = tb_finish.LAUNCHES["tb_finish"]
+    PEQ_LAUNCHES[path] = pdsch_eq.LAUNCHES["pdsch_eq_demap"]
+    p_peq = pdsch_eq.PLAIN_CUDA["pdsch_eq_demap"]
     tail_check(path, TAIL_CALLS["n"], tail_counts(),
                sum(pdcch_tail.PLAIN_CUDA.values()))
     p_eq = mimo_eq.PLAIN_CUDA["mimo_eq_demap"]
     log(f"  {path}: viterbi_tb launches {n_tb} (plain entry) + {n_s} "
         f"(search entry), plain Viterbi step loops on the card {p}; "
         f"mimo_eq_demap launches {EQ_LAUNCHES[path]}, plain eq/demap chains"
-        f" on the card {p_eq}; tb_finish launches {TBF_LAUNCHES[path]}")
+        f" on the card {p_eq}; tb_finish launches {TBF_LAUNCHES[path]}; "
+        f"pdsch_eq_demap launches {PEQ_LAUNCHES[path]}, plain SISO "
+        f"eq/demap chains on the card {p_peq}")
+    if p_peq != 0:
+        raise AssertionError(f"{path} ran the plain SISO eq/demap chain on "
+                             f"the card {p_peq} times")
     if p_eq != 0:
         raise AssertionError(f"{path} ran the plain eq/demap chain on the "
                              f"card {p_eq} times")
@@ -1576,6 +1606,101 @@ def check_tb_finish(device, rng, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2f: the batched single-layer eq/demap against its plain version
+# ---------------------------------------------------------------------------
+def check_pdsch_eq(device, card: str) -> dict:
+    """Phase 2f: pdsch_eq_demap against its plain version on the card and
+    on the host at every eq_grants variant; at the loaded batch its time,
+    byte bound, the parent's route (the plain chain on the card), one
+    dispatch's host cost, registers and spills."""
+    import torch
+    from ltesniffer_tpu_torch.kernels import nvcc_build, pdsch_eq
+    from ltesniffer_tpu_torch.sniffer import pdsch_rx
+    from ltesniffer_tpu_torch.testing import eq_grants
+    cases, worst = {}, [0.0, 0.0, 0]
+    for v in eq_grants.VARIANTS:
+        cell, grids, h, nv, jobs, re_of = eq_grants.batch(*v, seed=11)
+        table, re_tab = eq_grants.table(cell, h, jobs, device)
+        ts = [x.to(device) for x in (grids, h, nv)]
+        n0 = pdsch_eq.LAUNCHES["pdsch_eq_demap"]
+        got, host = pdsch_eq.eq_demap(*ts, table, re_tab, cell)
+        torch.cuda.synchronize()
+        if pdsch_eq.LAUNCHES["pdsch_eq_demap"] != n0 + 1 or \
+                not host.is_pinned():
+            raise AssertionError(f"{v}: not one launch from a pinned table")
+        _h, desc = pdsch_eq.upload(table, device)
+        on_card = pdsch_eq.eq_demap_plain(*ts, desc, re_tab, cell,
+                                          table.n_grants, table.wm)
+        on_host = pdsch_eq.eq_demap(grids, h, nv, table, None if re_tab is
+                                    None else re_tab.cpu(), cell)[0]
+        res = {}
+        for where, want in (("card", on_card), ("host", on_host)):
+            err, rel, n_diff, ok = eq_grants.max_err(got, want)
+            res[where] = dict(max_abs=err, max_rel=rel, floats_differ=n_diff)
+            log(f"  {eq_grants.variant_id(v)} ({table.n_grants} grants, "
+                f"{table.n_blocks} blocks): kernel vs plain on the {where}: "
+                f"max abs {err:.3g}, max rel {rel:.3g}, {n_diff} of "
+                f"{got.numel()} floats differ")
+            if not ok:
+                raise AssertionError(f"{v}: the kernel differs from the plain "
+                                     f"version on the {where} beyond the "
+                                     f"tolerance ({err}, {rel})")
+            worst = [max(worst[0], err), max(worst[1], rel),
+                     max(worst[2], n_diff)]
+        cases[eq_grants.variant_id(v)] = res
+    cell, grids, h, nv, jobs, re_of = eq_grants.batch("loaded", 1, 2,
+                                                      seed=12)
+    table, re_tab = eq_grants.table(cell, h, jobs, device)
+    ts = [x.to(device) for x in (grids, h, nv)]
+    _h, desc = pdsch_eq.upload(table, device)
+    ms = time_cuda(lambda: pdsch_eq.eq_demap_cuda(*ts, desc, table, re_tab,
+                                                  cell), 50)
+    dev_ms, per_call = device_ms(
+        lambda: pdsch_eq.eq_demap_cuda(*ts, desc, table, re_tab, cell),
+        ("pdsch_eq_demap_kernel",))
+    plain_ms = time_cuda(lambda: pdsch_eq.eq_demap_plain(
+        *ts, desc, re_tab, cell, table.n_grants, table.wm), 5)
+    # one dispatch's eq/demap as the host pays it: descriptors built from
+    # the jobs, one pinned upload, one launch
+    live = list(range(len(jobs)))
+
+    def dispatch():
+        srcs = [pdsch_rx._src_of(cell, j) for j in jobs]
+        tab, rt = pdsch_rx._eq_table(cell, 2, jobs, live, srcs, device)
+        return pdsch_rx._eq_rows(*ts, tab, rt, cell)[0]
+    dispatch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        dispatch()
+    host_ms = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize()
+    n_bytes = pdsch_eq.bytes_moved(table, 1)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    sass = nvcc_build.sass_counts("pdsch_eq_demap")
+    regs = nvcc_build.ptxas_report("pdsch_eq_demap")
+    for fn, r, st, ld in regs:
+        log(f"  ptxas pdsch_eq_demap: {r} registers, {st} / {ld} bytes spill "
+            f"stores / loads, {sass.get(fn, 'n/a')} SASS instructions ({fn})")
+    if any(st or ld for _fn, _r, st, ld in regs):
+        raise AssertionError(f"pdsch_eq_demap spills: {regs}")
+    log(f"  pdsch_eq_demap at the loaded batch ({table.n_grants} grants, "
+        f"{table.n_blocks} blocks) on {card}: kernel {ms:.4f} ms (CUDA "
+        f"events), {dev_ms if dev_ms is None else round(dev_ms, 4)} ms "
+        f"device time ({per_call} records a call); bound {bound_ms:.6f} ms "
+        f"(bytes: {n_bytes} at 3.35 TB/s); the plain chain on the card "
+        f"(the parent's route) {plain_ms:.4f} ms; descriptors + upload + "
+        f"launch of a dispatch {host_ms:.4f} ms on the host")
+    return dict(cases=cases, max_abs_err=worst[0], max_rel_err=worst[1],
+                floats_differ=worst[2], ms=ms, device_ms=dev_ms,
+                host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", bytes=n_bytes,
+                registers=[r for _f, r, _s, _l in regs],
+                spill_bytes=sum(st + ld for _f, _r, st, ld in regs),
+                shape={"grants": table.n_grants, "blocks": table.n_blocks})
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4
 # ---------------------------------------------------------------------------
 def run_golden(device, tmp: str):
@@ -1625,14 +1750,17 @@ def run_loaded(device, words, scales, tmp: str, batch_size: int = 256,
 
 
 # the port's XLA-program counterparts that run as chains of torch launches
-# (sniffer/<module>.<function>, how it is called): each call of one runs
-# under a profiler range, so that a profiled pass counts its launches
-CHAINS = (("pdsch_rx", "_eq_demap_fn", "factory"),
-          ("pdsch_rx", "_eq_demap_batch_fn", "factory"),
-          ("pdsch_rx", "_eq_demap_prb_fn", "pair"),
-          ("pdsch_rx", "_eq_demap_mimo_fn", "factory"),
-          ("pusch_rx", "_eq_batch_ul_fn", "factory"),
-          ("pdcch_rx", "_candidate_decode_tail", "call"))
+# (<package>.<module>.<function> of the port, how it is called): each call
+# of one runs under a profiler range "chain:<module>.<function>", so that a
+# profiled pass counts its launches.  The batched SISO eq/demap's chains
+# (`pdsch_eq`) are its plain version: on the card they must not run.
+CHAINS = (("sniffer.pdsch_rx", "_eq_demap_fn", "call"),
+          ("kernels.pdsch_eq", "_eq_demap_batch_fn", "factory"),
+          ("kernels.pdsch_eq", "_eq_demap_prb_fn", "pair"),
+          ("sniffer.pdsch_rx", "_eq_demap_mimo_fn", "factory"),
+          ("sniffer.pusch_rx", "_eq_batch_ul_fn", "factory"),
+          ("sniffer.pdcch_rx", "_candidate_decode_tail", "call"))
+PLAIN_CHAINS = ("pdsch_eq._eq_demap_batch_fn", "pdsch_eq._eq_demap_prb_fn")
 
 
 class chain_ranges:
@@ -1645,10 +1773,9 @@ class chain_ranges:
         import torch
         self.saved = []
         for mod_name, fn_name, kind in CHAINS:
-            mod = importlib.import_module(
-                f"ltesniffer_tpu_torch.sniffer.{mod_name}")
+            mod = importlib.import_module(f"ltesniffer_tpu_torch.{mod_name}")
             orig = getattr(mod, fn_name)
-            tag = f"chain:{mod_name}.{fn_name}"
+            tag = f"chain:{mod_name.rsplit('.', 1)[1]}.{fn_name}"
 
             def ranged(run, tag=tag):
                 def inner(*a, **k):
@@ -1750,6 +1877,7 @@ def profile_pass(run):
                                        "viterbi_tb_kernel",
                                        "viterbi_search_kernel",
                                        "mimo_eq_demap_kernel",
+                                       "pdsch_eq_demap_kernel",
                                        "pdcch_pack_kernel",
                                        "pdcch_derm_kernel",
                                        "pdcch_crc_pack_kernel")):
@@ -1765,6 +1893,11 @@ def profile_pass(run):
         log(f"  launch chain {name}: {c['calls']} calls, {per}, "
             f"{c['copies']} memory copies "
             f"({c['copies'] / max(1, c['calls']):.1f} a call)")
+    for name in PLAIN_CHAINS:
+        c = chains.get(name)
+        if c and (c["calls"] or c["launches"]):
+            raise AssertionError(f"the plain eq/demap chain {name} ran on the "
+                                 f"card: {c}")
     tail = chains.get("pdcch_rx._candidate_decode_tail")
     if not tail or not tail["calls"]:
         raise AssertionError("the profiled pass ran no search tail")
@@ -2366,8 +2499,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from ltesniffer_tpu_torch import native
     from ltesniffer_tpu_torch.kernels import bcjr, nvcc_build, turbo_decode
-    from ltesniffer_tpu_torch.kernels import mimo_eq, pdcch_tail, tb_finish
-    from ltesniffer_tpu_torch.kernels import viterbi
+    from ltesniffer_tpu_torch.kernels import mimo_eq, pdcch_tail, pdsch_eq
+    from ltesniffer_tpu_torch.kernels import tb_finish, viterbi
     from ltesniffer_tpu_torch.phy import tables, turbo as turbo_host
     from ltesniffer_tpu_torch.io import sdr
     from ltesniffer_tpu_torch.sniffer import core, prof
@@ -2385,15 +2518,17 @@ def main() -> int:
             log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
                 f"device {kind}")
             # one compiler run for each source, all started together
-            with concurrent.futures.ThreadPoolExecutor(7) as ex:
+            with concurrent.futures.ThreadPoolExecutor(8) as ex:
                 builds = {m.__name__.rsplit(".", 1)[1]: ex.submit(m.build)
                           for m in (turbo_decode, bcjr, viterbi, mimo_eq,
-                                    pdcch_tail, tb_finish, native)}
+                                    pdcch_tail, tb_finish, pdsch_eq,
+                                    native)}
             for name, mod in (("turbo_decode", "turbo_decode"),
                               ("bcjr", "bcjr"), ("viterbi_tb", "viterbi"),
                               ("mimo_eq_demap", "mimo_eq"),
                               ("pdcch_tail", "pdcch_tail"),
-                              ("tb_finish", "tb_finish")):
+                              ("tb_finish", "tb_finish"),
+                              ("pdsch_eq_demap", "pdsch_eq")):
                 log(f"  nvcc build of kernels/csrc/{name}.cu: "
                     f"{builds[mod].result():.2f} s")
                 sass = nvcc_build.sass_counts(name)
@@ -2530,6 +2665,9 @@ def main() -> int:
             tt = check_pdcch_tail(device, loaded_stream, rng, card)
         with Phase("2e the transport-block finish vs its plain version"):
             tf = check_tb_finish(device, rng, card)
+        with Phase("2f the batched single-layer eq/demap vs its plain "
+                   "version"):
+            te = check_pdsch_eq(device, card)
         with Phase("3 golden scenario on the card"):
             reset_counts()
             run_golden(device, tmp)
@@ -2583,6 +2721,20 @@ def main() -> int:
             if n_tbf <= 0 or n_tbf != dev_tb["events"]:
                 raise AssertionError(f"tb_finish launched {n_tbf} times for "
                                      f"{dev_tb['events']} batched dispatches")
+            n_peq = pdsch_eq.LAUNCHES["pdsch_eq_demap"]
+            n_disp = sum(cnt.get(k, {"events": 0})["events"]
+                         for k in ("pdsch_grant", "pdsch_grant_retried"))
+            n_single = host_reads("grant_llr")
+            eq_g = cnt.get("pdsch_eq_grants", {"total": 0, "events": 0})
+            log(f"  pdsch_eq_demap launches {n_peq}: {eq_g['total']} grants "
+                f"({eq_g['total'] / max(1, eq_g['events']):.1f} a launch) "
+                f"for {n_disp} batched dispatches and {n_single} single-grant "
+                "decodes")
+            if n_peq <= 0 or n_peq != n_disp + n_single or \
+                    eq_g["events"] != n_peq:
+                raise AssertionError(f"pdsch_eq_demap launched {n_peq} times "
+                                     f"for {n_disp} batched dispatches and "
+                                     f"{n_single} single-grant decodes")
             # the first pass pays one-time costs (constant tables, Gold
             # bases, first launches); a second pass reads the warm rate
             prof.reset()
@@ -2995,6 +3147,20 @@ def main() -> int:
                                   "bound_ms", "bound_by", "bytes", "shape",
                                   "registers", "spill_bytes", "cases")},
             "launches_per_path": dict(TBF_LAUNCHES)})
+        line["kernels"].append({
+            "name": "pdsch_eq_demap", "route": "cuda",
+            "source": "ltesniffer_tpu_torch/kernels/csrc/pdsch_eq_demap.cu",
+            "replaces": PDSCH_EQ_REPLACES,
+            "launches": PEQ_LAUNCHES["loaded cell"], "library_ms": None,
+            **{k: te[k] for k in ("ms", "device_ms", "host_ms", "plain_ms",
+                                  "bound_ms", "bound_by", "bytes", "shape",
+                                  "registers", "spill_bytes", "cases",
+                                  "max_abs_err", "max_rel_err",
+                                  "floats_differ")},
+            "launches_per_path": dict(PEQ_LAUNCHES),
+            "chains": {k: {n: c for n, c in v.items()
+                           if n.startswith(("pdsch_eq.", "pdsch_rx._eq_"))}
+                       for k, v in chains.items()}})
         log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3010,8 +3176,8 @@ def main_scale_out() -> int:
         return 2
     sys.path.insert(0, REPO)
     from ltesniffer_tpu_torch import native
-    from ltesniffer_tpu_torch.kernels import bcjr, pdcch_tail, turbo_decode
-    from ltesniffer_tpu_torch.kernels import viterbi
+    from ltesniffer_tpu_torch.kernels import bcjr, pdcch_tail, pdsch_eq
+    from ltesniffer_tpu_torch.kernels import turbo_decode, viterbi
     from ltesniffer_tpu_torch.testing import loaded_cell
     kind = torch.cuda.get_device_name(0)
     count_tail_calls()
@@ -3023,7 +3189,7 @@ def main_scale_out() -> int:
             with concurrent.futures.ThreadPoolExecutor(5) as ex:
                 for f in [ex.submit(m.build)
                           for m in (turbo_decode, bcjr, viterbi, pdcch_tail,
-                                    native)]:
+                                    pdsch_eq, native)]:
                     f.result()
         loaded_stream, placed, _ = loaded_cell.build_stream()
         mh = scale_out("cuda", card, loaded_stream, placed, tmp)

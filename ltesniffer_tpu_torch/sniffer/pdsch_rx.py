@@ -9,12 +9,15 @@ spatial multiplexing (TM3 CDD, TM4 closed loop) through
 per-DCI decode, softbuffer reuse for retransmissions, dual-table retry
 handled by the caller (MCSTracking).
 
-The per-RE math (gather/equalize/demap/descramble via the Gold-basis
-matmul) and the turbo decoder run as torch ops on the grids' device (a
-two-codeword grant's eq/demap/descramble as one launch of
-`kernels/mimo_eq.py`'s kernel on the card); the thin glue (segmentation sizes, scatter positions, TB CRC) is NumPy on the
-host.  Integer words that the JAX package keeps as uint32 are int64 here
-(torch's uint32 has little CUDA support) and become uint32 on the host.
+The per-RE math (gather, equalize, demap, Gold descramble) of every
+single-layer grant of a dispatch runs as one launch of
+`kernels/pdsch_eq.py`'s kernel on the card (its plain torch version on the
+CPU), a two-codeword grant's as one launch of `kernels/mimo_eq.py`'s; the
+turbo decoder and the transport-block finish run on the grids' device too;
+the thin glue (segmentation sizes, scatter positions, descriptors) is
+NumPy on the host.  Integer words that the JAX package keeps as uint32 are
+int64 here (torch's uint32 has little CUDA support) and become uint32 on
+the host.
 """
 from __future__ import annotations
 
@@ -24,20 +27,17 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ltesniffer_tpu_torch.phy import crc, pdsch as pdsch_mod, sequences, turbo as turbo_mod
+from ltesniffer_tpu_torch.phy import crc, pdsch as pdsch_mod, turbo as turbo_mod
 from ltesniffer_tpu_torch.phy import uci as uci_mod
 from ltesniffer_tpu_torch.phy.params import CellConfig
-from ltesniffer_tpu_torch.kernels import chest, demapper, mimo_eq, tb_finish
+from ltesniffer_tpu_torch.kernels import mimo_eq, pdsch_eq, tb_finish
 from ltesniffer_tpu_torch.kernels import turbo as kturbo
 from ltesniffer_tpu_torch.kernels.cplx import const
+from ltesniffer_tpu_torch.kernels.pdsch_eq import (  # noqa: F401
+    RE_BUCKET, bucket as _bucket, descramble as _descramble)
 from ltesniffer_tpu_torch.sniffer import prof
 
-RE_BUCKET = 256
 _W32 = (1 << np.arange(32, dtype=np.int64))
-
-
-def _bucket(n: int) -> int:
-    return -(-n // RE_BUCKET) * RE_BUCKET
 
 
 def _host(x, site: str) -> np.ndarray:
@@ -66,31 +66,19 @@ def _buffer_value(v):
     return v.get() if isinstance(v, LazyRow) else v
 
 
-def _descramble(llr, c_init, n_bits: int):
-    """llr (..., n_bits) * (1 - 2 * gold(c_init)) for c_init (...,)."""
-    scr = sequences.gold_sequence_torch(c_init, n_bits)
-    return llr * (1.0 - 2.0 * scr.to(torch.float32))
+def _eq_demap_fn(grids, h, noise_var, cell: CellConfig, job: "GrantJob",
+                 src: tuple):
+    """One grant's REs -> its (n_pad * qm,) descrambled LLRs: the batched
+    eq/demap (`_eq_rows`, one kernel launch on the card) of one grant, its
+    `_re_source` `src`.
 
-
-@prof.factory(64)
-def _eq_demap_fn(cell: CellConfig, qm: int, n_re_pad: int, n_ports: int):
-    """One grant's REs -> descrambled LLRs.
-
-    (grid_flat (RX, L, 2), h_flat (RX, P, L, 2), noise 0-d, re_idx
-     (n_re_pad,) int64, c_init 0-d int64, pa float) -> llr (n_re_pad * qm,)
-
-    pa: linear PDSCH-to-CRS amplitude ratio 10^(p_a/20) from the UE's
-    dedicated config (`MCSTracking.cc:1446-1529` stores p_a; applied here
-    as a scale on the CRS-derived channel estimate)."""
-    def run(grid_flat, h_flat, noise_var, re_idx, c_init, pa: float):
-        y = grid_flat[:, re_idx, :][None]                  # (1, RX, n, 2)
-        hh = h_flat[:, :, re_idx, :][None] * float(np.float32(pa))
-        nv = noise_var.reshape(1)
-        x = chest.equalize_ports(y, hh, nv, n_ports)[0]
-        llr = demapper.llr(x, qm)                          # (n*qm,)
-        return _descramble(llr, c_init, n_re_pad * qm)
-
-    return run
+    p_a: the job's linear PDSCH-to-CRS amplitude ratio 10^(p_a/20) from the
+    UE's dedicated config (`MCSTracking.cc:1446-1529` stores p_a; applied as
+    a scale on the CRS-derived channel estimate)."""
+    table, re_tab = _eq_table(cell, int(h.shape[2]), [job], [0], [src],
+                              grids.device)
+    rows, _desc_host = _eq_rows(grids, h, noise_var, table, re_tab, cell)
+    return rows[0]
 
 
 class PdschResult:
@@ -149,25 +137,18 @@ def decode_grant(grids, h, noise_var, b: int, cell: CellConfig, sf_idx: int,
     (3, K+4) LLR arrays (HARQ combining; `HARQ.cc` semantics live in the
     caller).
     """
-    re_idx = pdsch_mod.grant_re_indices(cell, sf_idx, cfi, prb_mask,
-                                        prb_mask_slot1)
-    n_re = len(re_idx)
+    job = GrantJob(b=b, sf_idx=sf_idx, cfi=cfi, rnti=rnti,
+                   prb_mask=np.asarray(prb_mask, bool), qm=qm, tbs=tbs,
+                   prb_mask_slot1=None if prb_mask_slot1 is None
+                   else np.asarray(prb_mask_slot1, bool), pa=pa)
+    src = _src_of(cell, job)
+    n_re = src[0]
     G = n_re * qm
     if tbs <= 0 or n_re == 0:
         return PdschResult(rnti, tbs, False, None, [], [], n_re)
     dev = grids.device
-    n_pad = _bucket(n_re)
-    idx = np.full(n_pad, re_idx[-1], dtype=np.int64)
-    idx[:n_re] = re_idx
-    c_init = pdsch_mod.scrambling_cinit(rnti, 0, sf_idx, cell.n_id_cell)
-
-    fn = _eq_demap_fn(cell, qm, n_pad, cell.nof_ports)
-    gflat = grids[b].reshape(grids.shape[1], -1, 2)
-    hflat = h[b].reshape(h.shape[1], h.shape[2], -1, 2)
-    llr = _host(fn(gflat, hflat, noise_var[b],
-                   torch.from_numpy(idx).to(dev),
-                   torch.tensor(c_init, dtype=torch.int64, device=dev),
-                   pa), "grant_llr")[:G]
+    llr = _host(_eq_demap_fn(grids, h, noise_var, cell, job, src),
+                "grant_llr")[:G]
     return _decode_tb_from_llrs(llr, rnti, tbs, qm, rv, n_re, soft_buffers,
                                 harq_key, n_iter, dev)
 
@@ -369,7 +350,7 @@ _RE_TAB_CACHE: Dict[tuple, np.ndarray] = {}
 
 
 def _re_tab(cell: CellConfig, n_pad: int, combos: tuple) -> np.ndarray:
-    """Unique grant-RE index tables for one eq/demap group.
+    """The RE index table of one eq/demap call's table grants.
 
     combos: tuple of (sf_idx, cfi, prb_mask bytes, slot1 bytes|None).
     Returns (U, n_pad) int64 (tail positions clamp to the last RE).  A
@@ -392,30 +373,6 @@ def _re_tab(cell: CellConfig, n_pad: int, combos: tuple) -> np.ndarray:
     return tab
 
 
-@prof.factory(64)
-def _eq_demap_batch_fn(cell: CellConfig, qm: int, n_re_pad: int,
-                       n_ports: int):
-    """Many grants' REs -> descrambled LLRs in one call.
-
-    (grids (B,RX,L,2), h (B,RX,P,L,2), noise (B,), bidx (G,), u_idx (G,),
-     re_tab (n_u, n), c_init (G,), pa (G,)) -> llr (G, n*qm)
-    """
-    def run(gflat, hflat, noise_var, bidx, u_idx, re_tab, c_init, pa):
-        re_idx = re_tab[u_idx]                           # (G, n)
-        # advanced-index gather: result (G, n, RX, 2) -> move RX forward
-        y = gflat[bidx[:, None], :, re_idx, :]           # (G, n, RX, 2)
-        y = torch.movedim(y, 1, 2)                       # (G, RX, n, 2)
-        hh = hflat[bidx[:, None], :, :, re_idx, :]       # (G, n, RX, P, 2)
-        hh = torch.movedim(hh, 1, 3)                     # (G, RX, P, n, 2)
-        hh = hh * pa[:, None, None, None, None]          # p_a scaling
-        nv = noise_var[bidx]
-        x = chest.equalize_ports(y, hh, nv, n_ports)     # (G, n, 2)
-        llr = demapper.llr(x, qm)                        # (G, n*qm)
-        return _descramble(llr, c_init, n_re_pad * qm)
-
-    return run
-
-
 @prof.factory(16)
 def _center_prbs(cell: CellConfig) -> frozenset:
     """PRBs overlapping the center 6 RBs (PBCH/PSS/SSS puncture zone)."""
@@ -425,70 +382,73 @@ def _center_prbs(cell: CellConfig) -> frozenset:
                      if 12 * p < hi and 12 * p + 12 > lo)
 
 
-def _reorg(cell: CellConfig, grids, h):
-    """Once-per-batch grid reorg to PRB-major block layout:
+@prof.factory(8192)
+def _re_source(cell: CellConfig, sf_idx: int, cfi: int, mask: bytes,
+               slot1: Optional[bytes]) -> tuple:
+    """(n_re, PRB list, None) of an allocation whose RE pattern is that of
+    every subframe (no centre-PRB puncture, one slot mask), else (n_re,
+    None, its RE table combo (sf_idx, cfi, mask, slot1)); masks as bytes.
+    A loaded cell re-issues the same allocations, so this is cached."""
+    prb = np.frombuffer(mask, dtype=bool)
+    n_re = len(pdsch_mod.grant_re_indices(
+        cell, sf_idx, cfi, prb,
+        None if slot1 is None else np.frombuffer(slot1, dtype=bool)))
+    if slot1 is None and not (sf_idx in (0, 5)
+                              and any(prb[p] for p in _center_prbs(cell))):
+        return n_re, [int(p) for p in np.flatnonzero(prb)], None
+    return n_re, None, (sf_idx, cfi, mask, slot1)
 
-    grids (B, RX, 14, n_sc, 2), h (B, RX, P, 14, n_sc, 2) ->
-      Xg (B, n_prb, 14, 12, RX, 2), Xh (B, n_prb, 14, 12, RX, P, 2)
 
-    so a grant's REs become whole-PRB contiguous blocks."""
-    B = grids.shape[0]
-    g = grids.reshape(B, grids.shape[1], 14, cell.n_prb, 12, 2)
-    Xg = g.permute(0, 3, 2, 4, 1, 5).contiguous()
-    hh = h.reshape(B, h.shape[1], h.shape[2], 14, cell.n_prb, 12, 2)
-    Xh = hh.permute(0, 4, 3, 5, 1, 2, 6).contiguous()
-    return Xg, Xh
+def _src_of(cell: CellConfig, j: GrantJob) -> tuple:
+    """`_re_source` of a job's allocation."""
+    return _re_source(cell, j.sf_idx, j.cfi, j.prb_mask.tobytes(),
+                      None if j.prb_mask_slot1 is None
+                      else j.prb_mask_slot1.tobytes())
 
 
-@prof.factory(256)
-def _eq_demap_prb_fn(cell: CellConfig, qm: int, n_prb: int, cfi: int,
-                     n_ports: int):
-    """Fast-path eq/demap for one (qm, n_prb, cfi) group: PRB-block gather
-    + constant data-RE compress + equalize + demap + descramble.
+def _eq_table(cell: CellConfig, ports: int, jobs: List[GrantJob],
+              jis: List[int], srcs: List[tuple], device):
+    """The `pdsch_eq.Table` of grants `jis` of `jobs` (their
+    `_re_source`s `srcs`), grant jis[r] in row r, and the RE table its
+    table grants read (None if it has none), built and uploaded once per
+    set of allocations (`_re_tab`)."""
+    table = pdsch_eq.Table(ports)
+    combos: list = []
+    u_of: Dict[tuple, int] = {}
+    n_id = cell.n_id_cell
+    for ji, (n_re, prbs, combo) in zip(jis, srcs):
+        j = jobs[ji]
+        c_init = pdsch_mod.scrambling_cinit(j.rnti, 0, j.sf_idx, n_id)
+        if prbs is not None:
+            table.add_prbs(j.b, j.qm, c_init, j.pa, n_re, _bucket(n_re),
+                           j.cfi, prbs)
+            continue
+        u = u_of.get(combo)
+        if u is None:
+            u = u_of[combo] = len(combos)
+            combos.append(combo)
+        table.add_row(j.b, j.qm, c_init, j.pa, n_re, _bucket(n_re), u)
+    re_tab = (const(_re_tab(cell, table.n_pad_tab, tuple(combos)), device)
+              if combos else None)
+    return table, re_tab
 
-    Applies to grants whose RE pattern is sf-independent (no PBCH/PSS/SSS
-    center-PRB puncture, single slot mask) — the common case on a loaded
-    cell.  The RE selection within the (14, n_prb, 12) PRB window is a
-    constant (the CRS pattern has period 6, so it is uniform across PRBs);
-    only the PRB list rides as data.
 
-    (Xg, Xh, noise_var (B,), bidx (G,), prbi (G, n_prb), c_init (G,),
-     pa (G,)) -> llr (G, n_pad*qm)
-    """
-    res = pdsch_mod.reserved_re_mask(cell, 1, cfi)   # sf 1: no center puncture
-    data_sc = [np.nonzero(~res[l, :12])[0] for l in range(14)]
-    n_re = sum(n_prb * len(data_sc[l]) for l in range(cfi, 14))
-    n_pad = _bucket(n_re)
-    SEL = np.zeros(n_pad, np.int64)
-    pos = 0
-    for l in range(cfi, 14):
-        for p in range(n_prb):
-            for k in data_sc[l]:
-                SEL[pos] = (l * n_prb + p) * 12 + k
-                pos += 1
-    SEL[pos:] = SEL[pos - 1]
-
-    def run(Xg, Xh, noise_var, bidx, prbi, c_init, pa):
-        G = bidx.shape[0]
-        sel = const(SEL, Xg.device)
-        Y = Xg[bidx[:, None], prbi]              # (G, n_prb, 14, 12, RX, 2)
-        Y = Y.permute(0, 4, 2, 1, 3, 5)          # (G, RX, 14, n_prb, 12, 2)
-        y = Y.reshape(G, Y.shape[1], -1, 2)[:, :, sel]    # (G, RX, n_pad, 2)
-        H = Xh[bidx[:, None], prbi]           # (G, n_prb, 14, 12, RX, P, 2)
-        H = H.permute(0, 4, 5, 2, 1, 3, 6)
-        hh = H.reshape(G, H.shape[1], H.shape[2], -1, 2)[:, :, :, sel]
-        hh = hh * pa[:, None, None, None, None]
-        nv = noise_var[bidx]
-        x = chest.equalize_ports(y, hh, nv, n_ports)
-        llr = demapper.llr(x, qm)
-        return _descramble(llr, c_init, n_pad * qm)
-
-    return run, n_pad
+def _eq_rows(grids, h, noise_var, table: pdsch_eq.Table, re_tab,
+             cell: CellConfig):
+    """The grants of `table` through one call of `pdsch_eq.eq_demap` (one
+    kernel launch on the card): row r of the (G, Wm) result holds grant
+    r's n_pad * qm LLRs, then zeros.  Returns (rows, the descriptors' host
+    buffer, to keep until the rows have been used)."""
+    with prof.span("pd_eqdemap_call"):
+        return pdsch_eq.eq_demap(grids.contiguous(), h.contiguous(),
+                                 noise_var, table, re_tab, cell)
 
 
 def _stack_rows(eq_outs: List, Wm: int):
     """Stack per-group eq/demap outputs into one (T, Wm) rows matrix
-    (zero-padded columns; padded tails are masked out by e_true)."""
+    (zero-padded columns; padded tails are masked out by e_true): the
+    uplink's batched path (`pusch_rx`); the downlink's rows come whole out
+    of `_eq_rows`."""
     parts = [o if int(o.shape[1]) == Wm
              else torch.nn.functional.pad(o, (0, Wm - int(o.shape[1])))
              for o in eq_outs]
@@ -658,6 +618,9 @@ class PendingPdschBatch:
         default_factory=dict)
     # the `tb_finish` launch over fused_dev, read by `finish_grants_batch`
     tb: Optional["TbFinish"] = None
+    # the pinned host buffer of the eq/demap launch's descriptors, kept
+    # until the batch's tb_finish output has been read
+    eq_host: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -713,101 +676,34 @@ def dispatch_grants_batch(grids, h, noise_var, cell: CellConfig,
                           n_iter: int = 8) -> PendingPdschBatch:
     """Queue the full decode of many grants on the device; no host reads.
 
-    Equalize/demap runs once per (qm, RE-bucket) group; de-rate-match +
-    HARQ combine + turbo + CB CRC + packing run per code-block size K;
-    one `tb_finish` launch then checks every transport block's CRCs and
-    writes its payload bytes.  Every output the host needs returns in ONE
-    uint8 buffer (`pb.tb.out`).
+    Equalize/demap runs once for every grant (one `pdsch_eq` launch);
+    de-rate-match + HARQ combine + turbo + CB CRC + packing run per
+    code-block size K; one `tb_finish` launch then checks every transport
+    block's CRCs and writes its payload bytes.  Every output the host
+    needs returns in ONE uint8 buffer (`pb.tb.out`).
     """
     dev = grids.device
     results: List[Optional[PdschResult]] = [None] * len(jobs)
-    meta = []
-    groups: Dict[Tuple[int, int], List[int]] = {}
-    fast_groups: Dict[Tuple[int, int, int], List[int]] = {}
-    center = _center_prbs(cell)
+    live: List[int] = []               # jobs with REs and bits to decode
+    srcs: List[tuple] = []             # their `_re_source`s
     with prof.span("pd_re_idx"):
         for ji, j in enumerate(jobs):
-            re_idx = pdsch_mod.grant_re_indices(cell, j.sf_idx, j.cfi,
-                                                j.prb_mask, j.prb_mask_slot1)
-            meta.append(re_idx)
-            if j.tbs <= 0 or len(re_idx) == 0:
+            src = _src_of(cell, j)
+            if j.tbs <= 0 or src[0] == 0:
                 results[ji] = PdschResult(j.rnti, j.tbs, False, None, [],
                                           [], 0)
                 continue
-            n_prb = int(np.count_nonzero(j.prb_mask))
-            # fast path: sf-independent RE pattern (no center-PRB puncture,
-            # one slot mask) -> PRB-block gather with constant RE compress
-            if (j.prb_mask_slot1 is None
-                    and not (j.sf_idx in (0, 5)
-                             and any(j.prb_mask[p] for p in center))):
-                fast_groups.setdefault((j.qm, n_prb, j.cfi), []).append(ji)
-            else:
-                groups.setdefault((j.qm, _bucket(len(re_idx))),
-                                  []).append(ji)
-    gflat = grids.reshape(grids.shape[0], grids.shape[1], -1, 2)
-    hflat = h.reshape(h.shape[0], h.shape[1], h.shape[2], -1, 2)
-    # --- eq/demap per group; outputs stay on device --------------------
-    eq_outs = []                       # (G, n_pad*qm) device tensors
-    row_of: Dict[int, int] = {}        # ji -> row in the stacked rows matrix
-    row_acc = 0
-    if fast_groups:
-        Xg, Xh = _reorg(cell, grids, h)
-    for (qm, n_prb, cfi), jis in fast_groups.items():
-        fn, n_pad = _eq_demap_prb_fn(cell, qm, n_prb, cfi, cell.nof_ports)
-        G = len(jis)
-        bidx = np.zeros(G, np.int64)
-        prbi = np.zeros((G, n_prb), np.int64)
-        cinit = np.zeros(G, np.int64)
-        pa = np.ones(G, np.float32)
-        for row, ji in enumerate(jis):
-            j = jobs[ji]
-            bidx[row] = j.b
-            prbi[row] = np.nonzero(j.prb_mask)[0]
-            cinit[row] = pdsch_mod.scrambling_cinit(j.rnti, 0, j.sf_idx,
-                                                    cell.n_id_cell)
-            pa[row] = j.pa
-            row_of[ji] = row_acc + row
-        with prof.span("pd_eqdemap_call"):
-            out = fn(Xg, Xh, noise_var, _t(bidx, dev), _t(prbi, dev),
-                     _t(cinit, dev), _t(pa, dev, torch.float32))
-        eq_outs.append(out)
-        row_acc += G
-    for (qm, n_pad), jis in groups.items():
-        G = len(jis)
-        bidx = np.array([jobs[ji].b for ji in jis], np.int64)
-        u_idx = np.zeros(G, np.int64)
-        cinit = np.zeros(G, np.int64)
-        pa = np.ones(G, np.float32)
-        combo_rows: list = []
-        u_of: Dict[tuple, int] = {}
-        for row, ji in enumerate(jis):
-            j = jobs[ji]
-            combo = (j.sf_idx, j.cfi, j.prb_mask.tobytes(),
-                     None if j.prb_mask_slot1 is None
-                     else j.prb_mask_slot1.tobytes())
-            u = u_of.get(combo)
-            if u is None:
-                u = u_of[combo] = len(combo_rows)
-                combo_rows.append(combo)
-            u_idx[row] = u
-            cinit[row] = pdsch_mod.scrambling_cinit(j.rnti, 0, j.sf_idx,
-                                                    cell.n_id_cell)
-            pa[row] = j.pa
-            row_of[ji] = row_acc + row
-        re_tab = const(_re_tab(cell, n_pad, tuple(combo_rows)), dev)
-        fn = _eq_demap_batch_fn(cell, qm, n_pad, cell.nof_ports)
-        with prof.span("pd_eqdemap_call"):
-            out = fn(gflat, hflat, noise_var, _t(bidx, dev), _t(u_idx, dev),
-                     re_tab, _t(cinit, dev), _t(pa, dev, torch.float32))
-        eq_outs.append(out)
-        row_acc += G
-    n_re_of = {ji: len(meta[ji]) for ji in range(len(jobs))
-               if results[ji] is None}
-    if not eq_outs:
+            live.append(ji)
+            srcs.append(src)
+        n_re_of = {ji: src[0] for ji, src in zip(live, srcs)}
+        if live:
+            table, re_tab = _eq_table(cell, int(h.shape[2]), jobs, live,
+                                      srcs, dev)
+    if not live:
         return PendingPdschBatch(jobs, results, {}, [], None, n_re_of)
-    # one rows matrix: row_of[ji] holds that grant's LLR stream
-    Wm = max(int(o.shape[1]) for o in eq_outs)
-    rows_mat = _stack_rows(eq_outs, Wm)
+    # --- eq/demap of every grant: row r of rows_mat is grant live[r] -----
+    rows_mat, eq_host = _eq_rows(grids, h, noise_var, table, re_tab, cell)
+    row_of = {ji: r for r, ji in enumerate(live)}
 
     # --- collect code blocks, grouped by K ------------------------------
     with prof.span("pd_collect_cb"):
@@ -816,25 +712,22 @@ def dispatch_grants_batch(grids, h, noise_var, cell: CellConfig,
         tb_of: Dict[int, int] = {}
         # K -> [(ji, ci, F, E, off, rv, key, rt)]
         by_k: Dict[int, list] = {}
-        all_job_groups = ([(k[0], jis) for k, jis in fast_groups.items()]
-                          + [(k[0], jis) for k, jis in groups.items()])
-        for qm, jis in all_job_groups:
-            for ji in jis:
-                j = jobs[ji]
-                Gbits = len(meta[ji]) * qm
-                seg = turbo_mod.segment_sizes(j.tbs)
-                seg_of[ji] = seg
-                tb_of[ji] = table.add(j.tbs, seg)
-                es = pdsch_mod.cb_rate_match_sizes(Gbits, seg.C, j.qm)
-                off = 0
-                for ci_, (K, E) in enumerate(zip(seg.K, es)):
-                    F = seg.F if ci_ == 0 else 0
-                    key_ci = ((j.harq_key, ci_)
-                              if soft_buffers is not None
-                              and j.harq_key is not None else None)
-                    by_k.setdefault(K, []).append(
-                        (ji, ci_, F, E, off, j.rv, key_ci, j.is_retx))
-                    off += E
+        for ji in live:
+            j = jobs[ji]
+            Gbits = n_re_of[ji] * j.qm
+            seg = turbo_mod.segment_sizes(j.tbs)
+            seg_of[ji] = seg
+            tb_of[ji] = table.add(j.tbs, seg)
+            es = pdsch_mod.cb_rate_match_sizes(Gbits, seg.C, j.qm)
+            off = 0
+            for ci_, (K, E) in enumerate(zip(seg.K, es)):
+                F = seg.F if ci_ == 0 else 0
+                key_ci = ((j.harq_key, ci_)
+                          if soft_buffers is not None
+                          and j.harq_key is not None else None)
+                by_k.setdefault(K, []).append(
+                    (ji, ci_, F, E, off, j.rv, key_ci, j.is_retx))
+                off += E
 
     # --- per-K device dispatch -------------------------------------------
     group_rows = []
@@ -926,7 +819,8 @@ def dispatch_grants_batch(grids, h, noise_var, cell: CellConfig,
                  else fused_parts[0])
     return PendingPdschBatch(jobs, results, seg_of, group_rows, fused_dev,
                              n_re_of, d_of=d_of,
-                             tb=_launch_tb_finish(fused_dev, table, tb_of))
+                             tb=_launch_tb_finish(fused_dev, table, tb_of),
+                             eq_host=eq_host)
 
 
 def finish_grants_batch(pb: PendingPdschBatch,
@@ -940,6 +834,7 @@ def finish_grants_batch(pb: PendingPdschBatch,
         return results
     with prof.span("pf_d2h"):
         buf = _host(pb.tb.out, site)     # ONE read for the whole batch
+    pb.eq_host = None
     with prof.span("pf_assemble"):
         for ji, r in _tb_results(pb, pb.tb, buf, soft_buffers).items():
             results[ji] = r

@@ -11,7 +11,7 @@ import torch
 
 from ltesniffer_tpu_torch.kernels import bcjr, mimo_eq, pdcch_tail, turbo
 from ltesniffer_tpu_torch.kernels import turbo_decode, viterbi
-from ltesniffer_tpu_torch.testing import mimo_grants
+from ltesniffer_tpu_torch.testing import eq_grants, mimo_grants
 
 torch.set_num_threads(1)
 
@@ -932,6 +932,105 @@ def test_tb_finish_upload_does_not_synchronize(card):
     assert host.is_pinned()
     # torch's own frame switching the mode back is not the port's call
     port = os.path.dirname(tb_finish.__file__).rsplit(os.sep, 1)[0]
+    syncs = [(w.filename, w.lineno) for w in caught
+             if "synchroniz" in str(w.message)]
+    assert not [f for f in syncs if f[0].startswith(port)], syncs
+
+
+# --- pdsch_eq: the batched single-layer PDSCH eq/demap ----------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", eq_grants.VARIANTS,
+                         ids=[eq_grants.variant_id(v)
+                              for v in eq_grants.VARIANTS])
+def test_pdsch_eq_kernel_matches_plain(card, variant):
+    """The kernel against its plain version on the same card tensors and
+    on the host, within eq_grants' tolerance (expected: equal floats), in
+    one launch: PRB-list and table grants of qm 2/4/6/8, 1/2/4 ports, 1
+    and 2 RX, centre PRBs at subframes 0 and 5, two slot masks, p_a != 1,
+    and one batch of the loaded and the E-TM 3.1 cells."""
+    from ltesniffer_tpu_torch.kernels import pdsch_eq
+    name, rx, ports = variant
+    cell, grids, h, nv, jobs, re_of = eq_grants.batch(name, rx, ports, 5)
+    table, re_tab = eq_grants.table(cell, h, jobs, card)
+    ts = [x.to(card) for x in (grids, h, nv)]
+    n0 = pdsch_eq.LAUNCHES["pdsch_eq_demap"]
+    got, host = pdsch_eq.eq_demap(*ts, table, re_tab, cell)
+    torch.cuda.synchronize()
+    assert pdsch_eq.LAUNCHES["pdsch_eq_demap"] == n0 + 1
+    assert host.is_pinned()
+    _h, desc = pdsch_eq.upload(table, card)
+    for where, want in (
+            ("card", pdsch_eq.eq_demap_plain(*ts, desc, re_tab, cell,
+                                             table.n_grants, table.wm)),
+            ("host", pdsch_eq.eq_demap(
+                grids, h, nv, table,
+                None if re_tab is None else re_tab.cpu(), cell)[0])):
+        err, rel, n_diff, ok = eq_grants.max_err(got, want)
+        print(f"\n{eq_grants.variant_id(variant)} vs plain on the {where}: "
+              f"max abs {err:.3g}, max rel {rel:.3g}, {n_diff} of "
+              f"{got.numel()} floats differ")
+        assert ok, (where, err, rel, n_diff)
+
+
+@pytest.mark.cuda
+def test_pdsch_eq_launches_once_per_dispatch(card):
+    """On the card the primary dispatch, a table retry's dispatch and the
+    single-grant path each launch the eq/demap kernel once; the
+    escalation launches none; no plain chain runs on the card."""
+    from ltesniffer_tpu_torch.kernels import pdsch_eq
+    from ltesniffer_tpu_torch.sniffer import pdsch_rx
+    from ltesniffer_tpu_torch.testing import tb_rows
+    grids, h, nv, jobs, sent = tb_rows.etm31_grants(
+        2, 0.12, np.random.default_rng(31))
+    grids, h, nv = grids.to(card), h.to(card), nv.to(card)
+    n0 = pdsch_eq.LAUNCHES["pdsch_eq_demap"]
+    p0 = pdsch_eq.PLAIN_CUDA["pdsch_eq_demap"]
+    pb = pdsch_rx.dispatch_grants_batch(grids, h, nv, tb_rows.ETM_CELL, jobs,
+                                        soft_buffers={}, n_iter=2)
+    assert pdsch_eq.LAUNCHES["pdsch_eq_demap"] == n0 + 1
+    res = pdsch_rx.finish_grants_batch(pb)
+    assert all(r.payload == s for r, s in zip(res, sent) if r.crc_ok)
+    failed = [i for i, r in enumerate(res) if not r.crc_ok]
+    if failed:
+        pdsch_rx.escalate_finish(pb, pdsch_rx.escalate_dispatch(pb, failed,
+                                                                12))
+    assert pdsch_eq.LAUNCHES["pdsch_eq_demap"] == n0 + 1
+    rpb = pdsch_rx.dispatch_grants_batch(grids, h, nv, tb_rows.ETM_CELL,
+                                         jobs[:4], n_iter=8)
+    pdsch_rx.finish_grants_batch(rpb, site="retry_join")
+    assert pdsch_eq.LAUNCHES["pdsch_eq_demap"] == n0 + 2
+    j = jobs[0]
+    r = pdsch_rx.decode_grant(grids, h, nv, j.b, tb_rows.ETM_CELL, j.sf_idx,
+                              j.cfi, j.rnti, j.prb_mask, j.qm, j.tbs)
+    assert pdsch_eq.LAUNCHES["pdsch_eq_demap"] == n0 + 3
+    if res[0].crc_ok:                 # 8 iterations where the batch ran 2
+        assert r.crc_ok and r.payload == sent[0]
+    assert pdsch_eq.PLAIN_CUDA["pdsch_eq_demap"] == p0
+
+
+@pytest.mark.cuda
+def test_pdsch_eq_upload_does_not_synchronize(card):
+    """The descriptor upload (a pinned buffer, non_blocking) and the
+    launch make no synchronizing call once the Gold table and the RE
+    table are on the card."""
+    import os
+    import warnings
+    from ltesniffer_tpu_torch.kernels import pdsch_eq
+    cell, grids, h, nv, jobs, re_of = eq_grants.batch("loaded", 1, 2)
+    table, re_tab = eq_grants.table(cell, h, jobs, card)
+    ts = [x.to(card) for x in (grids, h, nv)]
+    pdsch_eq.eq_demap(*ts, table, re_tab, cell)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out, host = pdsch_eq.eq_demap(*ts, table, re_tab, cell)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert host.is_pinned()
+    port = os.path.dirname(pdsch_eq.__file__).rsplit(os.sep, 1)[0]
     syncs = [(w.filename, w.lineno) for w in caught
              if "synchroniz" in str(w.message)]
     assert not [f for f in syncs if f[0].startswith(port)], syncs

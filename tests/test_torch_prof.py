@@ -408,7 +408,7 @@ def test_ratio_readers_with_nothing_escalated_read_zero():
 # the stream, so the host waits for all queued device work (PERF.md §7).
 HIDDEN_SYNCS = {
     ("ltesniffer_tpu_torch/sniffer/pdsch_rx.py", "_t"):
-        "the PDSCH dispatch's per-group index and scalar arrays",
+        "the PDSCH finisher's row indices, E sizes and prior gathers",
     ("ltesniffer_tpu_torch/sniffer/core.py", "_put_chunk"):
         "a batch's IQ words and scales, copied ahead",
     ("ltesniffer_tpu_torch/sniffer/core.py", "_phase1_chunk"):
@@ -433,14 +433,16 @@ def _function_at(path: str, line: int) -> str:
 
 
 @pytest.mark.cuda
-def test_host_read_counter_is_honest_on_the_card():
+def test_host_read_counter_is_honest_on_the_card(monkeypatch):
     """Every synchronizing call torch reports on a few loaded batches is a
     counted host read (at `prof.host_read`, as many as the counters'
-    events) or a known hidden sync of HIDDEN_SYNCS."""
+    events) or a known hidden sync of HIDDEN_SYNCS; none comes from the
+    eq/demap's or the finish's descriptor upload, and `pdsch_rx._t` is
+    left to the finisher: two uploads a turbo call and the prior gathers."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from ltesniffer_tpu_torch.kernels import tb_finish
-    from ltesniffer_tpu_torch.sniffer import core
+    from ltesniffer_tpu_torch.kernels import pdsch_eq, tb_finish
+    from ltesniffer_tpu_torch.sniffer import core, pdsch_rx
     from ltesniffer_tpu_torch.testing import loaded_cell
     n_sf = 160
     words, scales, _p, _t = loaded_cell.build_packed(n_sf=n_sf)
@@ -448,6 +450,13 @@ def test_host_read_counter_is_honest_on_the_card():
     c.run_packed(words, scales)                  # warm: builds and tables
     torch.cuda.synchronize()
     prof.reset()
+    t_calls = collections.Counter()      # callers of pdsch_rx._t
+    real_t = pdsch_rx._t
+
+    def counted_t(*a, **k):
+        t_calls[sys._getframe(1).f_code.co_name] += 1
+        return real_t(*a, **k)
+    monkeypatch.setattr(pdsch_rx, "_t", counted_t)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -482,6 +491,18 @@ def test_host_read_counter_is_honest_on_the_card():
     # (a pinned buffer, non_blocking; `_t` above would hide it otherwise)
     assert tb_finish.LAUNCHES["tb_finish"] > 0
     assert not [k for k in hidden if k[0].endswith("kernels/tb_finish.py")]
+    # nor the eq/demap's (one pinned, non_blocking copy a dispatch), which
+    # leaves pdsch_rx._t's syncs to the finisher
+    assert pdsch_eq.LAUNCHES["pdsch_eq_demap"] > 0
+    assert not [k for k in hidden if k[0].endswith("kernels/pdsch_eq.py")]
+    n_turbo = prof.report()["pd_turbo_call"]["n"]
+    n_t = hidden[("ltesniffer_tpu_torch/sniffer/pdsch_rx.py", "_t")]
+    print(f"  pdsch_rx._t: {n_t} syncs, calls by caller {dict(t_calls)}, "
+          f"{n_turbo} turbo calls, {pdsch_eq.LAUNCHES['pdsch_eq_demap']} "
+          "eq/demap launches")
+    assert set(t_calls) <= {"dispatch_grants_batch", "_gather_lazy_rows"}
+    assert t_calls["dispatch_grants_batch"] == 2 * n_turbo
+    assert n_t <= sum(t_calls.values())
 
 
 @pytest.mark.cuda
