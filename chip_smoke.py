@@ -849,7 +849,7 @@ class parent_route:
             index = pdsch_rx._mimo_re_index
 
             def uncached(*a):
-                pdsch_rx._MIMO_IDX_CACHE.clear()
+                pdsch_rx._mimo_index.cache_clear()
                 return index(*a)
             mimo_eq.eq_demap_mimo = mimo_eq.eq_demap_mimo_plain
             pdsch_rx._mimo_re_index = uncached

@@ -45,6 +45,18 @@ def const(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
     return t
 
 
+def upload_pinned(arr: np.ndarray, device):
+    """(host buffer, device tensor) of an int32 array.  On a card the host
+    buffer is pinned and the copy queued with non_blocking, so it does not
+    synchronize; keep the host buffer until the output has been read."""
+    if torch.device(device).type != "cuda":
+        host = torch.from_numpy(arr)
+        return host, host.to(device)
+    host = torch.empty(len(arr), dtype=torch.int32, pin_memory=True)
+    host.numpy()[:] = arr
+    return host, host.to(device, non_blocking=True)
+
+
 def to_ri(x: np.ndarray) -> np.ndarray:
     """numpy complex64 -> (..., 2) float32 (host side)."""
     x = np.ascontiguousarray(x, dtype=np.complex64)

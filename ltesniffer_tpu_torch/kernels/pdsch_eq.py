@@ -50,7 +50,7 @@ import torch
 from ltesniffer_tpu_torch.phy import pdsch as pdsch_mod, sequences
 from ltesniffer_tpu_torch.sniffer import prof
 from . import chest, demapper, mimo_eq, nvcc_build
-from .cplx import const
+from .cplx import const, upload_pinned
 
 SRC = os.path.join(nvcc_build.CSRC, "pdsch_eq_demap.cu")
 
@@ -170,17 +170,9 @@ class Table:
 
 def upload(table: Table, device, arr: Optional[np.ndarray] = None):
     """(host buffer, device int32 tensor) of the table (`arr`: its
-    `array()`, if made already).  On a card the host buffer is pinned and
-    the copy queued with non_blocking, so it does not synchronize; keep
-    the host buffer until the output has been read."""
-    if arr is None:
-        arr = table.array()
-    if torch.device(device).type != "cuda":
-        host = torch.from_numpy(arr)
-        return host, host.to(device)
-    host = torch.empty(len(arr), dtype=torch.int32, pin_memory=True)
-    host.numpy()[:] = arr
-    return host, host.to(device, non_blocking=True)
+    `array()`, if made already), by `cplx.upload_pinned`: keep the host
+    buffer until the output has been read."""
+    return upload_pinned(table.array() if arr is None else arr, device)
 
 
 def bytes_moved(table: Table, rx: int) -> int:

@@ -36,7 +36,7 @@ import torch
 
 from ltesniffer_tpu_torch.phy import crc
 from . import nvcc_build
-from .cplx import const
+from .cplx import const, upload_pinned
 
 SRC = os.path.join(nvcc_build.CSRC, "tb_finish.cu")
 
@@ -108,17 +108,10 @@ class Table:
 
 
 def upload(table: Table, device):
-    """(host buffer, device int32 tensor) of the table's descriptors.  On
-    a card the host buffer is pinned and the copy queued with
-    non_blocking, so it does not synchronize; keep the host buffer until
-    the launch's output has been read."""
-    arr = table.array()
-    if torch.device(device).type != "cuda":
-        host = torch.from_numpy(arr)
-        return host, host.to(device)
-    host = torch.empty(len(arr), dtype=torch.int32, pin_memory=True)
-    host.numpy()[:] = arr
-    return host, host.to(device, non_blocking=True)
+    """(host buffer, device int32 tensor) of the table's descriptors, by
+    `cplx.upload_pinned`: keep the host buffer until the launch's output
+    has been read."""
+    return upload_pinned(table.array(), device)
 
 
 @functools.lru_cache(maxsize=1)

@@ -211,7 +211,9 @@ def parse_rlc_am_data(pdu: bytes):
         # length indicators: 12-bit LI + E bit each, padded to octets
         more = True
         nbits = 0
-        while more and (p + (nbits + 13) // 8) <= len(pdu):
+        while more:
+            if 2 + (nbits + 12) // 8 >= len(pdu):
+                return None     # the LI runs past the PDU
             li_bits = []
             for k in range(13):
                 byte = pdu[2 + (nbits + k) // 8]

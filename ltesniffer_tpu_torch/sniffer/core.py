@@ -111,6 +111,49 @@ class AcceptedPdsch:
     table: trackers.McsTable
 
 
+@dataclasses.dataclass(slots=True)
+class _DlTb:
+    """One DL transport block from its DCI to its record: what
+    `_record_dl` needs, carried as `GrantJob.tag` on the batched route."""
+    a: dci_search.AcceptedDci
+    grant: dci_mod.DlGrant
+    sfn: int
+    sf: int
+    is_special: bool    # SI-, P- or RA-RNTI: no HARQ, no table learning
+    tables: tuple       # the MCS tables to try, in order (`_new_dl_tb`)
+    table: trackers.McsTable    # the table of the decode recorded
+    q: int = 0          # codeword
+    is_retx: bool = False
+
+
+def _is_special(rnti: int) -> bool:
+    return rnti in (SIRNTI, PRNTI) or RARNTI_START <= rnti <= RARNTI_END
+
+
+def _qm_tbs(mcs: int, n_prb: int, table: trackers.McsTable) -> tuple:
+    """(Q_m, TBS) of a DL MCS on an MCS table (36.213 7.1.7); TBS 0 for a
+    reserved MCS (a re-TX's size then comes from HARQ) or no PRB."""
+    qm, i_tbs = tables.dl_mcs_to_qm_itbs(
+        mcs, table == trackers.McsTable.QAM256)
+    return qm, tables.tbs_lookup(i_tbs, n_prb)
+
+
+@prof.factory(65536)
+def _derive_dci(cell: CellConfig, fmt: str, payload: bytes,
+                rnti: int) -> tuple:
+    """(Dci, grant) of a DCI's payload bits (uint8 bytes): the UL grant for
+    format 0, else the DL grant.  A loaded cell re-issues the same
+    allocations every frame; unpack + grant math in python was a
+    per-candidate hot-path cost (~30 us x thousands per batch).  Values are
+    immutable templates: `_grant_of` returns a shallow copy because
+    handlers mutate grant fields."""
+    d = dci_mod.unpack(np.frombuffer(payload, np.uint8), fmt, cell,
+                       rnti=rnti)
+    g = (dci_mod.ul_grant_from_dci(d, cell) if fmt == "0"
+         else dci_mod.dl_grant_from_dci(d, cell))
+    return d, g
+
+
 class LTESnifferCore:
     def __init__(self, cfg: SnifferConfig):
         self.cfg = cfg
@@ -753,13 +796,10 @@ class LTESnifferCore:
                 retry = None
                 retry_jobs, retry_idx = [], []
                 for idx, (job, r) in enumerate(zip(jobs, res)):
-                    t = job.tag
-                    if (r is not None and not r.crc_ok and not t["is_special"]
-                            and t["known"] == trackers.McsTable.UNKNOWN):
-                        qm2, i2 = tables.dl_mcs_to_qm_itbs(t["grant"].mcs,
-                                                           True)
-                        tbs2 = (tables.tbs_lookup(i2, t["grant"].n_prb_alloc)
-                                if i2 >= 0 else 0)
+                    tb = job.tag
+                    if r is not None and not r.crc_ok and len(tb.tables) > 1:
+                        qm2, tbs2 = _qm_tbs(tb.grant.mcs,
+                                            tb.grant.n_prb_alloc, tb.tables[1])
                         if tbs2 > 0:
                             retry_jobs.append(dataclasses.replace(
                                 job, qm=qm2, tbs=tbs2, harq_key=None))
@@ -794,10 +834,11 @@ class LTESnifferCore:
                         # the reference tries 64 first, then 256
                         if r2.crc_ok and not res[idx].crc_ok:
                             res[idx] = r2
-                            jobs[idx].tag["table"] = trackers.McsTable.QAM256
+                            tb = jobs[idx].tag
+                            tb.table = tb.tables[1]
                 with prof.span("p5_finish_dl"):
                     for job, r in zip(jobs, res):
-                        self._finish_dl(job, r, job.tag)
+                        self._record_dl(job.tag, r)
             self._tick_observers(ctx["B"])
             ctx["stage"] = 5
         prof.batch_out(ctx["base"])
@@ -840,24 +881,9 @@ class LTESnifferCore:
             m = obs_mod.rb_map_of(grants, self.cell.n_prb)
             print(f"[{sfn:4d}.{sf}] {obs_mod.render_rb_map(m)}")
 
-    # (cell, fmt, payload bytes, rnti) -> (Dci, Grant) template.  A loaded
-    # cell re-issues the same allocations every frame; unpack + grant math
-    # in python was a per-candidate hot-path cost (~30 us x thousands per
-    # batch).  Values are treated as immutable templates: `_grant_of`
-    # returns a shallow copy because handlers mutate grant fields.
-    _DERIVE_CACHE: Dict[tuple, tuple] = {}
-
     def _derive(self, a: dci_search.AcceptedDci):
-        key = (self.cell, a.fmt, a.payload.tobytes(), a.rnti)
-        hit = self._DERIVE_CACHE.get(key)
-        if hit is None:
-            d = dci_mod.unpack(a.payload, a.fmt, self.cell, rnti=a.rnti)
-            g = (dci_mod.ul_grant_from_dci(d, self.cell) if a.fmt == "0"
-                 else dci_mod.dl_grant_from_dci(d, self.cell))
-            if len(self._DERIVE_CACHE) > 65536:
-                self._DERIVE_CACHE.clear()
-            hit = self._DERIVE_CACHE[key] = (d, g)
-        return hit
+        return _derive_dci(self.cell, a.fmt,
+                           np.asarray(a.payload, np.uint8).tobytes(), a.rnti)
 
     def _unpack_dci(self, a: dci_search.AcceptedDci):
         """Unpack a DCI once per accepted candidate and cache the result
@@ -932,49 +958,68 @@ class LTESnifferCore:
         st.new_tx += 1
         st.last_seen_tti = trackers.tti_of(sfn, sf)
 
+    def _new_dl_tb(self, a: dci_search.AcceptedDci, grant: dci_mod.DlGrant,
+                   sfn: int, sf: int, is_special: bool, q: int = 0) -> _DlTb:
+        """A DL TB of a DCI, with the MCS tables to try in order (the
+        dual-table trial, `DL_Sniffer_PDSCH.cc:1090-1243`): 64QAM for a
+        special RNTI, the learnt table of a known RNTI, 64QAM then 256QAM
+        for an unknown one."""
+        known = (trackers.McsTable.QAM64 if is_special
+                 else self.mcs.dl_table_of(a.rnti))
+        plan = ((trackers.McsTable.QAM64, trackers.McsTable.QAM256)
+                if known == trackers.McsTable.UNKNOWN else (known,))
+        return _DlTb(a=a, grant=grant, sfn=sfn, sf=sf, is_special=is_special,
+                     tables=plan, table=plan[0], q=q)
+
+    def _classify_dl(self, tb: _DlTb, ndi: int, tbs: int, keyed: bool,
+                     skip_decoded: bool = True):
+        """HARQ classification of a TB at its first table's TBS, once and
+        not per table trial (as the reference, `DL_Sniffer_PDSCH.cc:955-991`).
+        Sets `tb.is_retx`; returns (the TBS to decode, with `keyed` the
+        soft-buffer key, cleared at a new TX), or None for a decoded re-TX
+        with `skip_decoded` (counted, `HARQ.cc:121-127`)."""
+        if tb.is_special:
+            return tbs, None
+        dec = self.harq.classify(tb.a.rnti, tb.grant.harq_pid, tb.q, ndi,
+                                 tbs, trackers.tti_of(tb.sfn, tb.sf))
+        if dec.decoded and skip_decoded:
+            self.harq_skipped += 1
+            return None
+        tb.is_retx = dec.is_retx
+        key = None
+        if keyed:
+            key = self.harq.buffer_key(tb.a.rnti, tb.grant.harq_pid, tb.q)
+            if not dec.is_retx:
+                self.soft_buffers.clear_harq(key)
+        return dec.tbs, key
+
     def _prepare_dl_job(self, i: int, cfi: int,
                         a: dci_search.AcceptedDci, sfn: int, sf: int,
                         ack_out: Optional[Dict[int, int]] = None):
         """Build a batchable GrantJob for a single-TB DL DCI (None if the
-        grant needs the immediate path: MIMO or no usable TBS)."""
+        grant needs the immediate path: MIMO or no usable TBS; False for a
+        decoded re-TX, which is skipped)."""
         grant = self._grant_of(a)
-        if (ack_out is not None and a.rnti not in (SIRNTI, PRNTI)
-                and not RARNTI_START <= a.rnti <= RARNTI_END):
+        special = _is_special(a.rnti)
+        if ack_out is not None and not special:
             ack_out[a.rnti] = max(ack_out.get(a.rnti, 0), grant.nof_tb)
         if grant.nof_tb == 2:
             return None
-        tti = trackers.tti_of(sfn, sf)
-        is_special = (a.rnti in (SIRNTI, PRNTI)
-                      or RARNTI_START <= a.rnti <= RARNTI_END)
-        known = self.mcs.dl_table_of(a.rnti)
-        table = (trackers.McsTable.QAM64
-                 if is_special or known == trackers.McsTable.UNKNOWN
-                 else known)
-        use256 = table == trackers.McsTable.QAM256
-        qm, i_tbs = tables.dl_mcs_to_qm_itbs(grant.mcs, use256)
-        tbs = tables.tbs_lookup(i_tbs, grant.n_prb_alloc) if i_tbs >= 0 else 0
-        is_retx = False
-        harq_key = None
-        if not is_special:
-            dec = self.harq.classify(
-                a.rnti, grant.harq_pid, 0, grant.ndi, tbs, tti)
-            if dec.decoded:
-                self.harq_skipped += 1
-                return False   # already decoded re-TX: skip entirely
-            is_retx, tbs = dec.is_retx, dec.tbs
-            if known != trackers.McsTable.UNKNOWN:
-                harq_key = self.harq.buffer_key(a.rnti, grant.harq_pid, 0)
-                if not is_retx:
-                    self.soft_buffers.clear_harq(harq_key)
+        tb = self._new_dl_tb(a, grant, sfn, sf, special)
+        qm, tbs = _qm_tbs(grant.mcs, grant.n_prb_alloc, tb.table)
+        # a soft buffer only on a known table: a trial decode must not
+        # pollute it
+        harq = self._classify_dl(tb, grant.ndi, tbs, keyed=len(tb.tables) == 1)
+        if harq is None:
+            return False
+        tbs, harq_key = harq
         if tbs <= 0:
             return None
         return pdsch_rx.GrantJob(
             b=i, sf_idx=sf, cfi=cfi, rnti=a.rnti, prb_mask=grant.prb_mask,
             qm=qm, tbs=tbs, rv=grant.rv,
             prb_mask_slot1=grant.prb_mask_slot1, harq_key=harq_key,
-            is_retx=is_retx, pa=self._pa_of(a.rnti),
-            tag=dict(a=a, grant=grant, sfn=sfn, sf=sf, is_retx=is_retx,
-                     table=table, known=known, is_special=is_special))
+            is_retx=tb.is_retx, pa=self._pa_of(a.rnti), tag=tb)
 
     def _pa_of(self, rnti: int) -> float:
         """Linear PDSCH power scale 10^(p_a/20) from the UE's dedicated
@@ -997,36 +1042,38 @@ class LTESnifferCore:
         prof.count("pdsch_cb", sum(len(g[3]) for g in pb.group_rows))
         return [(fe, pending, pb)]
 
-    def _finish_dl(self, job, res, t):
-        a = t["a"]
-        sfn, sf = t["sfn"], t["sf"]
-        is_retx = t["is_retx"]
-        crc_ok = res.crc_ok
-        if not t["is_special"]:
-            self.harq.report_crc(a.rnti, t["grant"].harq_pid, 0, crc_ok)
-        payload = None
-        if crc_ok and a.rnti == SIRNTI:
-            self._handle_sib(res.payload)
+    def _record_dl(self, tb: _DlTb, res: Optional[pdsch_rx.PdschResult],
+                   mac: bool = True, sib: bool = True):
+        """Record a TB's decode (None: no table gave a TBS): its HARQ
+        outcome, the RNTI's table learnt on a CRC pass, with `mac` the MAC
+        handlers (SIB with `sib`, RAR, UE config, API), the pcap record,
+        the RNTI's DL stats and the AcceptedPdsch."""
+        a = tb.a
+        crc_ok = res is not None and res.crc_ok
+        if not tb.is_special:
+            self.harq.report_crc(a.rnti, tb.grant.harq_pid, tb.q, crc_ok)
+        payload = res.payload if crc_ok else None
         if crc_ok:
-            if (not t["is_special"]
-                    and self.mcs.dl_table_of(a.rnti)
+            if mac and sib and a.rnti == SIRNTI:
+                self._handle_sib(payload)
+            if (not tb.is_special and self.mcs.dl_table_of(a.rnti)
                     == trackers.McsTable.UNKNOWN):
-                self.mcs.learn_dl_table(a.rnti, t["table"])
-            payload = res.payload
-            self._emit_pdsch(a, payload, sfn, sf, crc_ok=True,
-                             retx=1 if is_retx else 0)
-            if RARNTI_START <= a.rnti <= RARNTI_END:
-                # non-FDD-range RA-RNTI decoded via the batch path: RAR
-                # parse + T-CRNTI activation land here (one batch late —
-                # impossible on FDD air, where RA-RNTI <= 10 stays sync)
-                self._handle_rar(payload, sfn, sf)
-            elif not t["is_special"]:
-                self._learn_ue_config(a.rnti, payload)
-            if self.api is not None:
-                self._api_dl(a.rnti, payload, sfn, sf)
+                self.mcs.learn_dl_table(a.rnti, tb.table)
+            self._emit_pdsch(a, payload, tb.sfn, tb.sf, crc_ok=True,
+                             retx=1 if tb.is_retx else 0)
+            if mac:
+                if RARNTI_START <= a.rnti <= RARNTI_END:
+                    # a non-FDD-range RA-RNTI on the batched route: its
+                    # RAR lands one batch late (impossible on FDD air,
+                    # where RA-RNTI <= 10 stays synchronous)
+                    self._handle_rar(payload, tb.sfn, tb.sf)
+                elif not tb.is_special:
+                    self._learn_ue_config(a.rnti, payload)
+                if self.api is not None:
+                    self._api_dl(a.rnti, payload, tb.sfn, tb.sf)
         st = self.mcs.stat_dl(a.rnti)
-        st.last_seen_tti = trackers.tti_of(sfn, sf)
-        if is_retx:
+        st.last_seen_tti = trackers.tti_of(tb.sfn, tb.sf)
+        if tb.is_retx:
             st.retx += 1
         else:
             st.new_tx += 1
@@ -1035,17 +1082,16 @@ class LTESnifferCore:
         else:
             st.fail += 1
         self.results.append(AcceptedPdsch(
-            dci=a, crc_ok=crc_ok, tbs=res.tbs, payload=payload,
-            is_retx=is_retx, table=t["table"]))
+            dci=a, crc_ok=crc_ok, tbs=res.tbs if res is not None else 0,
+            payload=payload, is_retx=tb.is_retx, table=tb.table))
 
     def _handle_dl_dci(self, fe, i: int, cfi: int,
                        a: dci_search.AcceptedDci, sfn: int, sf: int,
                        ack_out: Optional[Dict[int, int]] = None):
         grant = self._grant_of(a)
-        if (ack_out is not None and a.rnti not in (SIRNTI, PRNTI)
-                and not RARNTI_START <= a.rnti <= RARNTI_END):
+        special = _is_special(a.rnti)
+        if ack_out is not None and not special:
             ack_out[a.rnti] = max(ack_out.get(a.rnti, 0), grant.nof_tb)
-        tti = trackers.tti_of(sfn, sf)
         if grant.nof_tb == 2:
             # TB enabled iff not (mcs == 0 and rv == 1), 36.213 7.1.7.2
             en0 = not (grant.mcs == 0 and grant.rv == 1)
@@ -1061,7 +1107,7 @@ class LTESnifferCore:
                     return
                 if self.cell.nof_rx_ant >= 2:
                     return self._handle_dl_dci_mimo(fe, i, cfi, a, grant,
-                                                    sfn, sf, tti)
+                                                    sfn, sf)
                 # 2 spatial codewords but a 1-antenna receiver: the grant
                 # cannot be decoded — count it like the reference's
                 # MIMO-config error (W_MIMO column, `MCSTracking.cc:98-110`)
@@ -1073,97 +1119,41 @@ class LTESnifferCore:
                 grant.mcs, grant.rv, grant.ndi = (grant.mcs2, grant.rv2,
                                                   grant.ndi2)
             grant.nof_tb = 1
-        is_special = (a.rnti in (SIRNTI, PRNTI)
-                      or RARNTI_START <= a.rnti <= RARNTI_END)
-        tried: List[trackers.McsTable] = []
-        if is_special:
-            tried = [trackers.McsTable.QAM64]
-        else:
-            known = self.mcs.dl_table_of(a.rnti)
-            if known == trackers.McsTable.UNKNOWN:
-                tried = [trackers.McsTable.QAM64, trackers.McsTable.QAM256]
-            else:
-                tried = [known]
-
-        # HARQ classification happens ONCE per DCI (not per table trial):
-        # the reference also classifies before its dual-table retry
-        # (`DL_Sniffer_PDSCH.cc:955-991`).
-        qm0, i_tbs0 = tables.dl_mcs_to_qm_itbs(
-            grant.mcs, tried[0] == trackers.McsTable.QAM256)
-        tbs0 = tables.tbs_lookup(i_tbs0, grant.n_prb_alloc) if i_tbs0 >= 0 else 0
-        is_retx = False
-        harq_key = None
-        if not is_special:
-            dec = self.harq.classify(
-                a.rnti, grant.harq_pid, 0, grant.ndi, tbs0, tti)
-            if dec.decoded:
-                self.harq_skipped += 1
-                return
-            is_retx, tbs0 = dec.is_retx, dec.tbs
-            harq_key = self.harq.buffer_key(a.rnti, grant.harq_pid, 0)
-            if not is_retx:
-                self.soft_buffers.clear_harq(harq_key)
-        # soft combining only when the MCS table is unambiguous (a trial
-        # decode must not pollute the HARQ buffer)
-        use_buffers = harq_key is not None and len(tried) == 1
-
+        tb = self._new_dl_tb(a, grant, sfn, sf, special)
+        # keyed, so an unknown-table RNTI's buffer is cleared at a new TX
+        # too (not on the batched route; kept for parity)
+        harq = self._classify_dl(
+            tb, grant.ndi, _qm_tbs(grant.mcs, grant.n_prb_alloc, tb.table)[1],
+            keyed=True)
+        if harq is None:
+            return
+        tbs0, harq_key = harq
+        # soft combining only when the MCS table is unambiguous
+        use_buffers = harq_key is not None and len(tb.tables) == 1
         res = None
-        used_table = tried[0]
-        for table in tried:
-            use256 = table == trackers.McsTable.QAM256
-            qm, i_tbs = tables.dl_mcs_to_qm_itbs(grant.mcs, use256)
-            tbs = tables.tbs_lookup(i_tbs, grant.n_prb_alloc) if i_tbs >= 0 \
-                else (tbs0 if is_retx else 0)
+        for table in tb.tables:
+            qm, tbs = _qm_tbs(grant.mcs, grant.n_prb_alloc, table)
+            if tbs <= 0 and tb.is_retx and grant.n_prb_alloc:
+                tbs = tbs0      # MCS reserved on this table: HARQ's TBS
             if tbs <= 0:
                 continue
-            r = pdsch_rx.decode_grant(
+            res = pdsch_rx.decode_grant(
                 fe["grids"], fe["h"], fe["noise_var"], i, self.cell, sf,
                 cfi, rnti=a.rnti, prb_mask=grant.prb_mask, qm=qm, tbs=tbs,
                 rv=grant.rv, prb_mask_slot1=grant.prb_mask_slot1,
                 soft_buffers=self.soft_buffers if use_buffers else None,
                 harq_key=harq_key if use_buffers else None,
                 pa=self._pa_of(a.rnti))
-            res = r
-            used_table = table
-            if r.crc_ok:
-                if (not is_special
-                        and self.mcs.dl_table_of(a.rnti)
-                        == trackers.McsTable.UNKNOWN):
-                    self.mcs.learn_dl_table(a.rnti, table)
+            tb.table = table
+            if res.crc_ok:
                 break
-
-        payload = None
-        crc_ok = res.crc_ok if res else False
-        if not is_special:
-            self.harq.report_crc(a.rnti, grant.harq_pid, 0, crc_ok)
-        if res and res.crc_ok:
-            payload = res.payload
-            self._emit_pdsch(a, payload, sfn, sf, crc_ok=True,
-                             retx=1 if is_retx else 0)
-            if RARNTI_START <= a.rnti <= RARNTI_END:
-                self._handle_rar(payload, sfn, sf)
-            elif not is_special:
-                self._learn_ue_config(a.rnti, payload)
-            if self.api is not None:
-                self._api_dl(a.rnti, payload, sfn, sf)
-        st = self.mcs.stat_dl(a.rnti)
-        st.last_seen_tti = tti
-        if is_retx:
-            st.retx += 1
-        else:
-            st.new_tx += 1
-        if crc_ok:
-            st.success += 1
-        else:
-            st.fail += 1
-        self.results.append(AcceptedPdsch(
-            dci=a, crc_ok=crc_ok, tbs=res.tbs if res else 0,
-            payload=payload, is_retx=is_retx, table=used_table))
+        # recorded as failed, TBS 0, where no table gave a TBS; no SIB
+        # handling on this route (both kept for parity)
+        self._record_dl(tb, res, sib=False)
 
     def _handle_dl_dci_mimo(self, fe, i: int, cfi: int,
                             a: dci_search.AcceptedDci,
-                            grant: dci_mod.DlGrant, sfn: int, sf: int,
-                            tti: int):
+                            grant: dci_mod.DlGrant, sfn: int, sf: int):
         """Formats 2/2A with two enabled TBs: spatial multiplexing decode
         (TM4 via the DCI's precoding info, TM3 for format 2A).
 
@@ -1192,42 +1182,25 @@ class LTESnifferCore:
                 self.mcs.note_wrong_mimo(a.rnti)
                 return
             tm, pmi = 3, 0
-        known = self.mcs.dl_table_of(a.rnti)
-        if known == trackers.McsTable.UNKNOWN:
-            tried = [trackers.McsTable.QAM64, trackers.McsTable.QAM256]
-        else:
-            tried = [known]
-        # HARQ classification ONCE per codeword (not per table trial),
-        # with the first table's TBS — like the single-TB path
-        cw_cfg = ((grant.mcs, grant.ndi, grant.rv),
-                  (grant.mcs2, grant.ndi2, grant.rv2))
-        decs, keys = [], []
-        for q, (mcs, ndi, _rv) in enumerate(cw_cfg):
-            qm0, i_tbs0 = tables.dl_mcs_to_qm_itbs(
-                mcs, tried[0] == trackers.McsTable.QAM256)
-            tbs0 = (tables.tbs_lookup(i_tbs0, grant.n_prb_alloc)
-                    if i_tbs0 >= 0 else 0)
-            dec = self.harq.classify(a.rnti, grant.harq_pid, q,
-                                     ndi, tbs0, tti)
-            key = self.harq.buffer_key(a.rnti, grant.harq_pid, q)
-            if not dec.is_retx:
-                self.soft_buffers.clear_harq(key)
-            decs.append(dec)
-            keys.append(key)
+        # every RNTI is a UE's on this route, SI-, P- and RA-RNTIs too:
+        # HARQ, table trial and learning (kept for parity)
+        cws = [self._new_dl_tb(a, grant, sfn, sf, False, q) for q in (0, 1)]
+        cw_mcs = (grant.mcs, grant.mcs2)
+        # a re-TX of a decoded TB is decoded again (kept for parity)
+        harq = [self._classify_dl(
+            cw, ndi, _qm_tbs(mcs, grant.n_prb_alloc, cw.table)[1],
+            keyed=True, skip_decoded=False)
+            for cw, mcs, ndi in zip(cws, cw_mcs, (grant.ndi, grant.ndi2))]
         # soft combining only when the table is unambiguous (a trial
         # decode must not pollute the HARQ buffers)
-        use_buffers = len(tried) == 1
+        use_buffers = len(cws[0].tables) == 1
         res = None
-        used_table = tried[0]
-        for table in tried:
-            use256 = table == trackers.McsTable.QAM256
+        for table in cws[0].tables:
             qms, tbss = [], []
-            for q, (mcs, _ndi, _rv) in enumerate(cw_cfg):
-                qm, i_tbs = tables.dl_mcs_to_qm_itbs(mcs, use256)
-                tbs = (tables.tbs_lookup(i_tbs, grant.n_prb_alloc)
-                       if i_tbs >= 0 else 0)
-                if decs[q].is_retx and tbs <= 0:
-                    tbs = decs[q].tbs    # mcs 29-31 re-TX: stored TBS
+            for cw, mcs, (tbs0, _key) in zip(cws, cw_mcs, harq):
+                qm, tbs = _qm_tbs(mcs, grant.n_prb_alloc, table)
+                if cw.is_retx and tbs <= 0:
+                    tbs = tbs0    # mcs 29-31 re-TX: stored TBS
                 qms.append(qm)
                 tbss.append(tbs)
             if min(tbss) <= 0:
@@ -1235,42 +1208,24 @@ class LTESnifferCore:
             # synchronous: one host read of the LLRs and one of the bits
             # per code-block size, between the batched jobs of phase 3
             with prof.span("p3_mimo"):
-                r = pdsch_rx.decode_grant_mimo(
+                res = pdsch_rx.decode_grant_mimo(
                     fe["grids"], fe["h"], fe["noise_var"], i, self.cell, sf,
                     cfi, rnti=a.rnti, prb_mask=grant.prb_mask,
                     qms=tuple(qms), tbss=tuple(tbss), tm=tm,
                     pmi=pmi if pmi is not None else 0,
                     rvs=(grant.rv, grant.rv2),
                     soft_buffers=self.soft_buffers if use_buffers else None,
-                    harq_keys=tuple(keys) if use_buffers else (None, None))
-            res = r
-            used_table = table
-            if any(x.crc_ok for x in r):
-                if known == trackers.McsTable.UNKNOWN:
-                    self.mcs.learn_dl_table(a.rnti, table)
+                    harq_keys=(tuple(key for _tbs, key in harq)
+                               if use_buffers else (None, None)))
+            for cw in cws:
+                cw.table = table
+            if any(r.crc_ok for r in res):
                 break
         if res is None:
-            return
-        st = self.mcs.stat_dl(a.rnti)
-        st.last_seen_tti = tti
-        for q, r in enumerate(res):
-            self.harq.report_crc(a.rnti, grant.harq_pid, q, r.crc_ok)
-            is_retx = decs[q].is_retx
-            if is_retx:
-                st.retx += 1
-            else:
-                st.new_tx += 1
-            if r.crc_ok:
-                st.success += 1
-                payload = r.payload
-                self._emit_pdsch(a, payload, sfn, sf, crc_ok=True,
-                                 retx=1 if is_retx else 0)
-            else:
-                st.fail += 1
-            self.results.append(AcceptedPdsch(
-                dci=a, crc_ok=r.crc_ok, tbs=r.tbs,
-                payload=r.payload if r.crc_ok else None,
-                is_retx=is_retx, table=used_table))
+            return      # nothing recorded (kept for parity)
+        for cw, r in zip(cws, res):
+            # no SIB, RAR, UE-config or API handling (kept for parity)
+            self._record_dl(cw, r, mac=False)
 
     def _handle_sib(self, payload: bytes):
         """SI-RNTI PDSCH -> SIB1 (PLMN/cell identity + SI scheduling) and
@@ -1297,8 +1252,7 @@ class LTESnifferCore:
         learned UNCONDITIONALLY, api mode or not (the reference's
         MCSTracking consumes every such message,
         `DL_Sniffer_PDSCH.cc:1041-1070` -> `MCSTracking.cc:1446-1529`)."""
-        if (rnti in (SIRNTI, PRNTI) or RARNTI_START <= rnti <= RARNTI_END
-                or rnti in self.mcs.ue_config):
+        if _is_special(rnti) or rnti in self.mcs.ue_config:
             return
         from ltesniffer_tpu_torch.mac_rrc import rrc as rrc_mod
         try:
@@ -1331,7 +1285,7 @@ class LTESnifferCore:
         if rnti == PRNTI:
             self.api.on_paging(payload, sfn, sf)
             return
-        if rnti in (SIRNTI,) or RARNTI_START <= rnti <= RARNTI_END:
+        if _is_special(rnti):
             return
         try:
             subs = mac_mod.parse_mac_pdu(payload)

@@ -173,7 +173,17 @@ def _eq_demap_mimo_fn(cell: CellConfig, qm0: int, qm1: int, n_re_pad: int,
     return run
 
 
-_MIMO_IDX_CACHE: Dict[tuple, tuple] = {}
+@prof.factory(512)
+def _mimo_index(cell: CellConfig, sf_idx: int, cfi: int, mask: bytes,
+                device: str) -> tuple:
+    """`_mimo_re_index` of a PRB mask given as bytes (a device as str)."""
+    re_idx = pdsch_mod.grant_re_indices(cell, sf_idx, cfi,
+                                        np.frombuffer(mask, dtype=bool))
+    n_re = len(re_idx)
+    n_pad = _bucket(n_re)
+    idx = np.full(n_pad, re_idx[-1], dtype=np.int64)
+    idx[:n_re] = re_idx
+    return n_re, n_pad, torch.from_numpy(idx).to(device)
 
 
 def _mimo_re_index(cell: CellConfig, sf_idx: int, cfi: int,
@@ -181,21 +191,8 @@ def _mimo_re_index(cell: CellConfig, sf_idx: int, cfi: int,
     """(n_re, n_pad, (n_pad,) int64 RE index on `device`) of a
     two-codeword grant, the padded tail repeating the last RE; uploaded
     once per (subframe index, CFI, PRB mask, device)."""
-    mask = np.asarray(prb_mask, bool)
-    key = (cell, sf_idx, cfi, mask.tobytes(), str(device))
-    hit = _MIMO_IDX_CACHE.get(key)
-    if hit is None:
-        re_idx = pdsch_mod.grant_re_indices(cell, sf_idx, cfi, mask)
-        n_re = len(re_idx)
-        n_pad = _bucket(n_re)
-        idx = np.full(n_pad, re_idx[-1], dtype=np.int64)
-        idx[:n_re] = re_idx
-        prof.count("build.pdsch_rx._mimo_re_index")
-        if len(_MIMO_IDX_CACHE) > 512:
-            _MIMO_IDX_CACHE.clear()
-        hit = _MIMO_IDX_CACHE[key] = (n_re, n_pad,
-                                      torch.from_numpy(idx).to(device))
-    return hit
+    return _mimo_index(cell, sf_idx, cfi,
+                       np.asarray(prb_mask, bool).tobytes(), str(device))
 
 
 def decode_grant_mimo(grids, h, noise_var, b: int, cell: CellConfig,
@@ -346,9 +343,7 @@ class GrantJob:
     tag: object = None          # caller cookie (e.g. the AcceptedDci)
 
 
-_RE_TAB_CACHE: Dict[tuple, np.ndarray] = {}
-
-
+@prof.factory(512)
 def _re_tab(cell: CellConfig, n_pad: int, combos: tuple) -> np.ndarray:
     """The RE index table of one eq/demap call's table grants.
 
@@ -356,20 +351,13 @@ def _re_tab(cell: CellConfig, n_pad: int, combos: tuple) -> np.ndarray:
     Returns (U, n_pad) int64 (tail positions clamp to the last RE).  A
     loaded cell re-issues the same allocations every frame, so the tables
     are cached (and uploaded once per device through `const`)."""
-    key = (cell, n_pad, combos)
-    tab = _RE_TAB_CACHE.get(key)
-    if tab is None:
-        tab = np.zeros((len(combos), n_pad), np.int64)
-        for u, (sf_idx, cfi, mb, s1b) in enumerate(combos):
-            mask = np.frombuffer(mb, dtype=bool)
-            s1 = None if s1b is None else np.frombuffer(s1b, dtype=bool)
-            re_idx = pdsch_mod.grant_re_indices(cell, sf_idx, cfi, mask, s1)
-            tab[u, :len(re_idx)] = re_idx
-            tab[u, len(re_idx):] = re_idx[-1]
-        prof.count("build.pdsch_rx._re_tab")
-        if len(_RE_TAB_CACHE) > 512:
-            _RE_TAB_CACHE.clear()
-        _RE_TAB_CACHE[key] = tab
+    tab = np.zeros((len(combos), n_pad), np.int64)
+    for u, (sf_idx, cfi, mb, s1b) in enumerate(combos):
+        mask = np.frombuffer(mb, dtype=bool)
+        s1 = None if s1b is None else np.frombuffer(s1b, dtype=bool)
+        re_idx = pdsch_mod.grant_re_indices(cell, sf_idx, cfi, mask, s1)
+        tab[u, :len(re_idx)] = re_idx
+        tab[u, len(re_idx):] = re_idx[-1]
     return tab
 
 

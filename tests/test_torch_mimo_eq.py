@@ -353,7 +353,7 @@ def test_mimo_re_index_cached_per_grant_shape():
     cell = CellConfig(n_id_cell=93, n_prb=50, nof_ports=2, nof_rx_ant=2)
     mask = np.zeros(50, bool)
     mask[5:25] = True
-    pdsch_rx._MIMO_IDX_CACHE.clear()
+    pdsch_rx._mimo_index.cache_clear()
     n_re, n_pad, idx = pdsch_rx._mimo_re_index(cell, 2, 2, mask, "cpu")
     want = pdsch_mod.grant_re_indices(cell, 2, 2, mask)
     assert n_re == len(want) and n_pad == pdsch_rx._bucket(n_re)
@@ -362,7 +362,8 @@ def test_mimo_re_index_cached_per_grant_shape():
     assert (idx[n_re:] == int(want[-1])).all()
     assert pdsch_rx._mimo_re_index(cell, 2, 2, mask.copy(), "cpu")[2] is idx
     other = pdsch_rx._mimo_re_index(cell, 3, 2, mask, "cpu")
-    assert other[2] is not idx and len(pdsch_rx._MIMO_IDX_CACHE) == 2
+    assert other[2] is not idx
+    assert pdsch_rx._mimo_index.cache_info().currsize == 2
 
 
 def test_decode_grant_mimo_uses_one_buffer(monkeypatch):

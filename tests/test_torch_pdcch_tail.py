@@ -558,7 +558,7 @@ def test_const_entry_goes_with_its_array():
 
 
 def test_const_frees_a_cleared_table_cache():
-    """A table dropped from its cache (as pdsch_rx clears _RE_TAB_CACHE)
+    """A table dropped from its cache (`pdsch_rx._re_tab`'s lru cache)
     takes its device copy with it."""
     from ltesniffer_tpu_torch.sniffer import pdsch_rx
     cell = CellConfig(n_id_cell=5, n_prb=6, nof_ports=1)
@@ -570,7 +570,7 @@ def test_const_frees_a_cleared_table_cache():
     key = (id(tab), "cpu", None)
     cplx.const(tab, "cpu")
     assert key in cplx._CONST_CACHE
-    pdsch_rx._RE_TAB_CACHE.clear()
+    pdsch_rx._re_tab.cache_clear()
     del tab
     gc.collect()
     assert key not in cplx._CONST_CACHE

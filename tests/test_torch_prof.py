@@ -495,6 +495,9 @@ def test_host_read_counter_is_honest_on_the_card(monkeypatch):
     # leaves pdsch_rx._t's syncs to the finisher
     assert pdsch_eq.LAUNCHES["pdsch_eq_demap"] > 0
     assert not [k for k in hidden if k[0].endswith("kernels/pdsch_eq.py")]
+    # both make it through cplx.upload_pinned
+    assert not [k for k in hidden if k[0].endswith("kernels/cplx.py")
+                and k[1] == "upload_pinned"]
     n_turbo = prof.report()["pd_turbo_call"]["n"]
     n_t = hidden[("ltesniffer_tpu_torch/sniffer/pdsch_rx.py", "_t")]
     print(f"  pdsch_rx._t: {n_t} syncs, calls by caller {dict(t_calls)}, "
