@@ -8,9 +8,9 @@ Drives `ltesniffer_tpu_torch` — the PyTorch port of the JAX package
 `ltesniffer_tpu` — through its main path on the card and fails (non-zero
 exit) if any phase fails:
 
-1. card and build: the card's name and power limit; build the seven
+1. card and build: the card's name and power limit; build the eight
    hand-written CUDA sources with nvcc and the native resolver with g++,
-   all eight side by side: the fused whole-decode turbo kernel
+   all nine side by side: the fused whole-decode turbo kernel
    (kernels/csrc/turbo_decode.cu, the main path's decoder), the per-pass
    BCJR kernel (kernels/csrc/bcjr.cu, the earlier design), the
    tail-biting Viterbi of the blind search and the MIB
@@ -19,8 +19,9 @@ exit) if any phase fails:
    (kernels/csrc/mimo_eq_demap.cu), the search tail's packing kernel and
    the earlier route's de-rate-match and CRC / packing kernels
    (kernels/csrc/pdcch_tail.cu), the batched PDSCH path's
-   transport-block finish (kernels/csrc/tb_finish.cu) and single-layer
-   eq/demap (kernels/csrc/pdsch_eq_demap.cu), and the host resolver
+   transport-block finish (kernels/csrc/tb_finish.cu), single-layer
+   eq/demap (kernels/csrc/pdsch_eq_demap.cu) and code blocks'
+   de-rate-match (kernels/csrc/cb_derm.cu), and the host resolver
    (csrc/resolver.cpp); their build times and ptxas registers/spills.
 2. kernels vs plain version: at the K values of the loaded cell's and the
    golden scenario's grants and K = 40 and 6144, n_iter 2 and 12, at the
@@ -125,6 +126,23 @@ exit) if any phase fails:
    From phase 3 on every path must run the plain eq/demap chain on the
    card no time; each path's launches are reported; the loaded cell's
    must equal its batched dispatches and single-grant decodes.
+2g. the batched PDSCH de-rate-match (kernels/csrc/cb_derm.cu) and the
+   turbo kernel's packing entry against their plain versions: the
+   testing/derm_batches batches (E-TM 3.1, loaded, and one with fillers,
+   laps 1-3, rv 0-3, an in-batch retransmission chain and priors stored
+   as a LazyRow and as a host array): cb_derm equal to the host's plain
+   version float for float and to the card's within DERM_ATOL (the card's
+   plain version sums laps in another order), one launch a round; one
+   dispatch's code blocks on the card equal to the host's (fused rows,
+   combined LLRs), one packing launch a K; the packing entry equal to the
+   decoder and `_crc_pack` at the cells' K and the extremes, n_iter 2 and
+   12.  Times at one E-TM 3.1 batch of 32 subframes: cb_derm and the
+   packing entry (CUDA events, device time) beside their bounds and the
+   plain route on the card, one dispatch's code blocks on the host;
+   registers and spills (none allowed).  Every later path must run the
+   plain de-rate-match on the card no time, and a path that finishes
+   blocks on the card must launch both; the profiled DL passes (4b, 5b)
+   must run none of `DL_PLAIN_CHAINS`.
 3. golden: the golden scenario (tests/golden/dl_mode.pcap), built by the
    port's own generator, run on the card; the pcap's sha256 must equal.
 4. loaded cell at full width (20 MHz, 512 subframes, batch 256, with its
@@ -221,8 +239,9 @@ exit) if any phase fails:
    `mimo_eq_demap`'s the launch chains of the profiled passes,
    `viterbi_search`'s phase 2d's cases, the tail call's steps and the
    constant cache of phase 4's passes; `tb_finish`'s phase 2e;
-   `pdsch_eq_demap`'s phase 2f and every path's launches), then the
-   result line.
+   `pdsch_eq_demap`'s phase 2f and every path's launches; `cb_derm`'s
+   phase 2g and every path's launches, `turbo_decode`'s `pack` the packing
+   entry's), then the result line.
 
 Imports torch, numpy, the standard library and the port only — no JAX.
 Writes only under a temporary directory and ltesniffer_tpu_torch/_build/.
@@ -291,6 +310,9 @@ SEARCH_REPLACES = "ltesniffer_tpu/sniffer/pdcch_rx.py:81"
 TB_FINISH_REPLACES = "ltesniffer_tpu/sniffer/pdsch_rx.py:860 (host code)"
 PDSCH_EQ_REPLACES = ("ltesniffer_tpu/sniffer/pdsch_rx.py:294 _eq_demap_batch_fn"
                      ", :336 _reorg_fn, :357 _eq_demap_prb_fn (XLA)")
+# XLA, not Pallas: the de-rate-match of _derm_turbo_static_fn; the packing
+# entry takes _crc_pack (:489) into the turbo kernel
+CB_DERM_REPLACES = "ltesniffer_tpu/sniffer/pdsch_rx.py:468 (XLA)"
 # the earlier route's times at one search call of the loaded cell: the
 # Viterbi's plain entry, pdcch_derm (CUDA events) and pdcch_crc_pack
 # (device time a launch): NVIDIA H100 80GB HBM3, 700 W (PERF.md, section 6)
@@ -1430,11 +1452,11 @@ def host_reads(*sites) -> int:
 
 
 def reset_counts():
-    from ltesniffer_tpu_torch.kernels import bcjr, mimo_eq, pdcch_tail
-    from ltesniffer_tpu_torch.kernels import pdsch_eq, tb_finish
+    from ltesniffer_tpu_torch.kernels import bcjr, cb_derm, mimo_eq
+    from ltesniffer_tpu_torch.kernels import pdcch_tail, pdsch_eq, tb_finish
     from ltesniffer_tpu_torch.kernels import turbo_decode, viterbi
-    for m in (bcjr, mimo_eq, pdcch_tail, pdsch_eq, tb_finish, turbo_decode,
-              viterbi):
+    for m in (bcjr, cb_derm, mimo_eq, pdcch_tail, pdsch_eq, tb_finish,
+              turbo_decode, viterbi):
         m.reset_launches()
     TAIL_CALLS["n"] = 0
 
@@ -1446,6 +1468,7 @@ TAIL_LAUNCHES = {}   # path -> {"calls": search tails, kernel: launches}
 VIT_LAUNCHES = {}    # path -> the Viterbi's plain entry's launches
 TBF_LAUNCHES = {}    # path -> tb_finish launches (viterbi_count)
 PEQ_LAUNCHES = {}    # path -> pdsch_eq_demap launches (viterbi_count)
+DERM_LAUNCHES = {}   # path -> [cb_derm, packing entry] launches (the same)
 
 
 def tail_counts() -> dict:
@@ -1483,9 +1506,13 @@ def viterbi_count(path: str) -> int:
     EQ_LAUNCHES and fails if it ran the plain eq/demap chain on the card,
     and checks its search tails (`tail_check`), and records its tb_finish
     and batched SISO eq/demap launches in TBF_LAUNCHES and PEQ_LAUNCHES,
-    failing if it ran the plain SISO eq/demap chain on the card."""
-    from ltesniffer_tpu_torch.kernels import mimo_eq, pdcch_tail, pdsch_eq
-    from ltesniffer_tpu_torch.kernels import tb_finish, viterbi
+    failing if it ran the plain SISO eq/demap chain on the card, and its
+    cb_derm and packing-entry launches in DERM_LAUNCHES, failing if it ran
+    the plain de-rate-match on the card or finished blocks on the card
+    (tb_finish) without either kernel."""
+    from ltesniffer_tpu_torch.kernels import cb_derm, mimo_eq, pdcch_tail
+    from ltesniffer_tpu_torch.kernels import pdsch_eq, tb_finish
+    from ltesniffer_tpu_torch.kernels import turbo_decode, viterbi
     n_tb, n_s = viterbi.LAUNCHES["viterbi"], viterbi.LAUNCHES["viterbi_search"]
     n = n_tb + n_s
     p = viterbi.PLAIN_CUDA["viterbi"]
@@ -1494,6 +1521,9 @@ def viterbi_count(path: str) -> int:
     TBF_LAUNCHES[path] = tb_finish.LAUNCHES["tb_finish"]
     PEQ_LAUNCHES[path] = pdsch_eq.LAUNCHES["pdsch_eq_demap"]
     p_peq = pdsch_eq.PLAIN_CUDA["pdsch_eq_demap"]
+    DERM_LAUNCHES[path] = [cb_derm.LAUNCHES["cb_derm"],
+                           turbo_decode.LAUNCHES["turbo_decode_pack"]]
+    p_derm = cb_derm.PLAIN_CUDA["cb_derm"]
     tail_check(path, TAIL_CALLS["n"], tail_counts(),
                sum(pdcch_tail.PLAIN_CUDA.values()))
     p_eq = mimo_eq.PLAIN_CUDA["mimo_eq_demap"]
@@ -1502,7 +1532,17 @@ def viterbi_count(path: str) -> int:
         f"mimo_eq_demap launches {EQ_LAUNCHES[path]}, plain eq/demap chains"
         f" on the card {p_eq}; tb_finish launches {TBF_LAUNCHES[path]}; "
         f"pdsch_eq_demap launches {PEQ_LAUNCHES[path]}, plain SISO "
-        f"eq/demap chains on the card {p_peq}")
+        f"eq/demap chains on the card {p_peq}; cb_derm launches "
+        f"{DERM_LAUNCHES[path][0]}, packing-entry launches "
+        f"{DERM_LAUNCHES[path][1]}, plain de-rate-matches on the card "
+        f"{p_derm}")
+    if p_derm != 0:
+        raise AssertionError(f"{path} ran the plain de-rate-match on the "
+                             f"card {p_derm} times")
+    if TBF_LAUNCHES[path] and not all(DERM_LAUNCHES[path]):
+        raise AssertionError(f"{path} finished blocks on the card without "
+                             f"cb_derm and the packing entry: "
+                             f"{DERM_LAUNCHES[path]}")
     if p_peq != 0:
         raise AssertionError(f"{path} ran the plain SISO eq/demap chain on "
                              f"the card {p_peq} times")
@@ -1701,6 +1741,194 @@ def check_pdsch_eq(device, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2g: the batched de-rate-match and the turbo kernel's packing entry
+# ---------------------------------------------------------------------------
+# the plain de-rate-match on the card sums laps in torch's CUDA reduction
+# order: a float may move by (laps - 1) ulps of the sum of the laps'
+# magnitudes (tests/test_torch_cuda.py DERM_ATOL); the host's plain
+# version sums as the kernel does, so the kernel must equal it exactly
+DERM_ATOL = 6e-4
+
+
+def check_cb_derm(device, card: str) -> dict:
+    """Phase 2g: cb_derm and the turbo kernel's packing entry against
+    their plain versions at the derm_batches batches (E-TM 3.1, loaded,
+    odd: fillers, laps 1-3, rv 0-3, a chain of depth 2, priors by address
+    and in the upload): cb_derm equal to the host's plain version float for
+    float and to the card's within DERM_ATOL; one dispatch's code blocks on
+    the card against the same on the host, fused rows bit for bit.  At one
+    batch of 32 subframes of the E-TM 3.1 cell: cb_derm's and the packing
+    entry's times (CUDA events, device time), byte bounds, the plain
+    route's time on the card (the chain, the decoder's LLR entry and
+    `_crc_pack`), one dispatch's code blocks on the host, registers and
+    spills."""
+    import torch
+    from ltesniffer_tpu_torch.kernels import cb_derm, nvcc_build
+    from ltesniffer_tpu_torch.kernels import turbo as kturbo, turbo_decode
+    from ltesniffer_tpu_torch.sniffer import pdsch_rx
+    from ltesniffer_tpu_torch.testing import derm_batches
+    import numpy as np
+
+    def on(dev, jobs, seed):
+        rng = np.random.default_rng(seed)
+        rows, live, n_re = derm_batches.batch(jobs, rng, device=dev)
+        bufs = derm_batches.stored(jobs, rng, device=dev)
+        return rows, live, n_re, bufs
+
+    cases = {}
+    for name in ("etm31", "loaded", "odd"):
+        jobs = derm_batches.BATCHES[name]()
+        got = {}
+        for dev in (device, "cpu"):
+            rows, live, n_re, bufs = on(dev, jobs, 41)
+            n0 = (cb_derm.LAUNCHES["cb_derm"],
+                  turbo_decode.LAUNCHES["turbo_decode_pack"])
+            pb = pdsch_rx._dispatch_code_blocks(rows, jobs, live, n_re,
+                                                dict(bufs), 2)
+            tab = pb.derm[0]
+            if dev == device:
+                torch.cuda.synchronize()
+                n1 = (cb_derm.LAUNCHES["cb_derm"] - n0[0],
+                      turbo_decode.LAUNCHES["turbo_decode_pack"] - n0[1])
+                if n1 != (len(tab.rounds()), len(pb.group_rows)):
+                    raise AssertionError(f"{name}: {n1} launches, not one "
+                                         "cb_derm a round and one packing "
+                                         "entry a K")
+            n_out = max(c[8] + 3 * (c[3] + 4) for c in tab.cb)
+            out = torch.full((n_out,), float("nan"), device=dev)
+            keep = []
+            _h, desc = cb_derm.upload(tab, dev, out, keep)
+            cb_derm.derm(rows, tab, desc, out)
+            plain = None
+            if dev == device:
+                plain = torch.full((n_out,), float("nan"), device=dev)
+                _h2, desc2 = cb_derm.upload(tab, dev, plain, keep)
+                cb_derm.derm_plain(rows, desc2, tab, plain)
+                plain = plain.cpu()
+            got[dev] = (out.cpu(), plain, pb.fused_dev.cpu(),
+                        {k: v.get().cpu() for k, v in pb.d_of.items()})
+        (out_c, plain_c, fused_c, d_c), (out_h, _p, fused_h, d_h) = \
+            got[device], got["cpu"]
+        exact = torch.equal(out_c, out_h)
+        diff = (out_c - plain_c).abs()
+        rows_equal = torch.equal(fused_c, fused_h)
+        d_equal = all(torch.equal(d_c[k], d_h[k]) for k in d_h)
+        cases[name] = dict(code_blocks=tab.n_cb, rounds=len(tab.rounds()),
+                           equal_host=exact,
+                           floats_differ_card=int((diff > 0).sum()),
+                           max_abs_card=float(diff.max()),
+                           rows_equal=rows_equal, llrs_equal=d_equal)
+        log(f"  {name}: {tab.n_cb} code blocks, {len(tab.rounds())} rounds, "
+            f"{len(pb.group_rows)} K; cb_derm == plain on the host: {exact};"
+            f" vs the card's plain version {cases[name]['floats_differ_card']}"
+            f" floats differ (max {cases[name]['max_abs_card']:.3g}); the "
+            f"dispatch's fused rows equal the host's: {rows_equal}, combined "
+            f"LLRs: {d_equal}")
+        if not (exact and rows_equal and d_equal) or \
+                cases[name]["max_abs_card"] > DERM_ATOL:
+            raise AssertionError(f"{name}: the kernels differ from the plain "
+                                 f"route: {cases[name]}")
+    # the packing entry against the decoder's LLR entry and _crc_pack at
+    # the cells' K and the extremes, n_iter 2 and 12
+    rng = np.random.default_rng(24)
+    for K in (40, 352, 576, 3904, 4224, 4992, 5120, 6144):
+        for n_iter in (2, 12):
+            B = 3 if K >= 3904 else 17
+            d = torch.from_numpy((3.0 * rng.standard_normal(
+                (B, 3, K + 4))).astype(np.float32))
+            rows = pdsch_rx._turbo_only_fn(K, n_iter)(d.to(device))
+            bits, _ = kturbo.make_decoder(K, n_iter)(d.to(device))
+            want_c = pdsch_rx._crc_pack(bits, K).cpu()
+            want_h = pdsch_rx._turbo_only_fn(K, n_iter)(d)
+            if not (torch.equal(rows.cpu(), want_c)
+                    and torch.equal(rows.cpu(), want_h)):
+                raise AssertionError(f"the packing entry differs from the "
+                                     f"plain route at K={K}, n_iter {n_iter}")
+    log("  packing entry == decoder + _crc_pack on the card and on the host "
+        "at K 40, 352, 576, 3904, 4224, 4992, 5120, 6144, n_iter 2 and 12")
+    # times at one batch of 32 subframes of the E-TM 3.1 cell
+    jobs = derm_batches.etm31_jobs(32)
+    rows, live, n_re, _b = on(device, jobs, 7)
+    pb = pdsch_rx._dispatch_code_blocks(rows, jobs, live, n_re, {}, 2)
+    tab = pb.derm[0]
+    out = torch.empty(max(c[8] + 3 * (c[3] + 4) for c in tab.cb),
+                      device=device)
+    keep = []
+    _h, desc = cb_derm.upload(tab, device, out, keep)
+    derm_ms = time_cuda(lambda: cb_derm.derm_cuda(rows, desc, tab, out), 50)
+    derm_dev, per_call = device_ms(
+        lambda: cb_derm.derm_cuda(rows, desc, tab, out), ("cb_derm_kernel",))
+    derm_plain_ms = time_cuda(
+        lambda: cb_derm.derm_plain(rows, desc, tab, out), 5)
+    derm_bytes = cb_derm.bytes_moved(tab)
+    slabs = [(K, pb.d_of[items[0][:2]].arr) for K, _w, _n, items
+             in pb.group_rows]
+
+    def pack():
+        for K, slab in slabs:
+            pdsch_rx._turbo_only_fn(K, 2)(slab, pb.fused_dev, 0)
+
+    def plain_pack():
+        for K, slab in slabs:
+            pdsch_rx._crc_pack(kturbo.make_decoder(K, 2)(slab)[0], K)
+    pack_ms = time_cuda(pack, 20)
+    pack_dev, _pc = device_ms(pack, ("turbo_decode_kernel",))
+    plain_pack_ms = time_cuda(plain_pack, 20)
+    pack_bound = max(
+        sum(turbo_decode.bytes_moved_pack(K, s.shape[0]) for K, s in slabs)
+        / HBM_BYTES_PER_S,
+        sum(turbo_decode.ops(K, s.shape[0], 2) for K, s in slabs)
+        / F32_OPS_PER_S) * 1e3
+
+    def dispatch():
+        return pdsch_rx._dispatch_code_blocks(rows, jobs, live, n_re, {}, 2)
+    dispatch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        dispatch()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    regs = [r for r in nvcc_build.ptxas_report("cb_derm")]
+    regs_pack = [r for r in nvcc_build.ptxas_report("turbo_decode")
+                 if "Lb1E" in r[0]]
+    sass = {**nvcc_build.sass_counts("cb_derm"),
+            **nvcc_build.sass_counts("turbo_decode")}
+    for fn, r, st, ld in regs + regs_pack:
+        log(f"  ptxas {fn}: {r} registers, {st} / {ld} bytes spill stores / "
+            f"loads, {sass.get(fn, 'n/a')} SASS instructions")
+    if any(st or ld for _fn, _r, st, ld in regs + regs_pack):
+        raise AssertionError(f"cb_derm or the packing entry spills: "
+                             f"{regs + regs_pack}")
+    derm_bound = derm_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  cb_derm at the E-TM 3.1 batch ({tab.n_cb} code blocks) on "
+        f"{card}: {derm_ms:.4f} ms (CUDA events), "
+        f"{derm_dev if derm_dev is None else round(derm_dev, 4)} ms device "
+        f"time ({per_call} records a call); bound {derm_bound:.5f} ms "
+        f"(bytes: {derm_bytes} at 3.35 TB/s); the plain chain on the card "
+        f"{derm_plain_ms:.4f} ms")
+    log(f"  packing entry at the same batch ({len(slabs)} launches, K "
+        f"{[K for K, _ in slabs]}, n_iter 2): {pack_ms:.4f} ms (CUDA events),"
+        f" {pack_dev if pack_dev is None else round(pack_dev, 4)} ms device "
+        f"time; bound {pack_bound:.5f} ms (operations); the decoder's LLR "
+        f"entry + _crc_pack on the card {plain_pack_ms:.4f} ms; one "
+        f"dispatch's code blocks (descriptors, upload, launches, tb_finish) "
+        f"{host_ms:.4f} ms on the host")
+    return dict(cases=cases, ms=derm_ms, device_ms=derm_dev,
+                plain_ms=derm_plain_ms, bound_ms=derm_bound, bound_by="bytes",
+                bytes=derm_bytes, host_ms=host_ms,
+                registers=[r for _f, r, _s, _l in regs],
+                spill_bytes=sum(st + ld for _f, _r, st, ld in regs),
+                shape={"code_blocks": tab.n_cb, "rounds": len(tab.rounds())},
+                pack=dict(ms=pack_ms, device_ms=pack_dev,
+                          plain_ms=plain_pack_ms, bound_ms=pack_bound,
+                          bound_by="operations", launches=len(slabs),
+                          registers=[r for _f, r, _s, _l in regs_pack],
+                          spill_bytes=sum(st + ld for _f, _r, st, ld
+                                          in regs_pack)))
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4
 # ---------------------------------------------------------------------------
 def run_golden(device, tmp: str):
@@ -1759,8 +1987,17 @@ CHAINS = (("sniffer.pdsch_rx", "_eq_demap_fn", "call"),
           ("kernels.pdsch_eq", "_eq_demap_prb_fn", "pair"),
           ("sniffer.pdsch_rx", "_eq_demap_mimo_fn", "factory"),
           ("sniffer.pusch_rx", "_eq_batch_ul_fn", "factory"),
-          ("sniffer.pdcch_rx", "_candidate_decode_tail", "call"))
+          ("sniffer.pdcch_rx", "_candidate_decode_tail", "call"),
+          ("sniffer.pdsch_rx", "_derm_turbo_static_fn", "factory"),
+          ("sniffer.pusch_rx", "_derm_turbo_static_fn", "factory"),
+          ("kernels.cb_derm", "derm_plain", "call"),
+          ("sniffer.pdsch_rx", "_crc_pack", "call"))
 PLAIN_CHAINS = ("pdsch_eq._eq_demap_batch_fn", "pdsch_eq._eq_demap_prb_fn")
+# the batched DL dispatch's plain de-rate-match, turbo and packing chains
+# (the uplink's dispatch still runs `_derm_turbo_static_fn`): a DL pass on
+# the card runs none of them
+DL_PLAIN_CHAINS = ("pdsch_rx._derm_turbo_static_fn", "cb_derm.derm_plain",
+                   "pdsch_rx._crc_pack")
 
 
 class chain_ranges:
@@ -1838,11 +2075,12 @@ def const_cache(when: str) -> tuple:
     return n
 
 
-def profile_pass(run):
+def profile_pass(run, plain=PLAIN_CHAINS):
     """One more pass of a cell (`run()` returns its wall seconds) under
     torch.profiler: device time by kernel name, the device's busy share of
     the wall time, the host spans of the port's stage profiler, and the
-    launches of each CHAINS function over the pass (returned)."""
+    launches of each CHAINS function over the pass (returned); fails if a
+    chain of `plain` ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from ltesniffer_tpu_torch.sniffer import prof
@@ -1878,6 +2116,7 @@ def profile_pass(run):
                                        "viterbi_search_kernel",
                                        "mimo_eq_demap_kernel",
                                        "pdsch_eq_demap_kernel",
+                                       "cb_derm_kernel",
                                        "pdcch_pack_kernel",
                                        "pdcch_derm_kernel",
                                        "pdcch_crc_pack_kernel")):
@@ -1893,11 +2132,11 @@ def profile_pass(run):
         log(f"  launch chain {name}: {c['calls']} calls, {per}, "
             f"{c['copies']} memory copies "
             f"({c['copies'] / max(1, c['calls']):.1f} a call)")
-    for name in PLAIN_CHAINS:
+    for name in plain:
         c = chains.get(name)
         if c and (c["calls"] or c["launches"]):
-            raise AssertionError(f"the plain eq/demap chain {name} ran on the "
-                                 f"card: {c}")
+            raise AssertionError(f"the plain chain {name} ran on the card: "
+                                 f"{c}")
     tail = chains.get("pdcch_rx._candidate_decode_tail")
     if not tail or not tail["calls"]:
         raise AssertionError("the profiled pass ran no search tail")
@@ -2499,8 +2738,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from ltesniffer_tpu_torch import native
     from ltesniffer_tpu_torch.kernels import bcjr, nvcc_build, turbo_decode
-    from ltesniffer_tpu_torch.kernels import mimo_eq, pdcch_tail, pdsch_eq
-    from ltesniffer_tpu_torch.kernels import tb_finish, viterbi
+    from ltesniffer_tpu_torch.kernels import cb_derm, mimo_eq, pdcch_tail
+    from ltesniffer_tpu_torch.kernels import pdsch_eq, tb_finish, viterbi
     from ltesniffer_tpu_torch.phy import tables, turbo as turbo_host
     from ltesniffer_tpu_torch.io import sdr
     from ltesniffer_tpu_torch.sniffer import core, prof
@@ -2518,17 +2757,18 @@ def main() -> int:
             log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
                 f"device {kind}")
             # one compiler run for each source, all started together
-            with concurrent.futures.ThreadPoolExecutor(8) as ex:
+            with concurrent.futures.ThreadPoolExecutor(9) as ex:
                 builds = {m.__name__.rsplit(".", 1)[1]: ex.submit(m.build)
                           for m in (turbo_decode, bcjr, viterbi, mimo_eq,
                                     pdcch_tail, tb_finish, pdsch_eq,
-                                    native)}
+                                    cb_derm, native)}
             for name, mod in (("turbo_decode", "turbo_decode"),
                               ("bcjr", "bcjr"), ("viterbi_tb", "viterbi"),
                               ("mimo_eq_demap", "mimo_eq"),
                               ("pdcch_tail", "pdcch_tail"),
                               ("tb_finish", "tb_finish"),
-                              ("pdsch_eq_demap", "pdsch_eq")):
+                              ("pdsch_eq_demap", "pdsch_eq"),
+                              ("cb_derm", "cb_derm")):
                 log(f"  nvcc build of kernels/csrc/{name}.cu: "
                     f"{builds[mod].result():.2f} s")
                 sass = nvcc_build.sass_counts(name)
@@ -2668,6 +2908,9 @@ def main() -> int:
         with Phase("2f the batched single-layer eq/demap vs its plain "
                    "version"):
             te = check_pdsch_eq(device, card)
+        with Phase("2g the batched de-rate-match and the turbo kernel's "
+                   "packing entry vs their plain versions"):
+            tdm = check_cb_derm(device, card)
         with Phase("3 golden scenario on the card"):
             reset_counts()
             run_golden(device, tmp)
@@ -2746,7 +2989,8 @@ def main() -> int:
             const_passes.append(const_cache("warm second pass"))
         with Phase("4b where the time goes (profiled third pass)"):
             chains = {"loaded": profile_pass(
-                lambda: run_loaded(device, words, scales, tmp)[2])}
+                lambda: run_loaded(device, words, scales, tmp)[2],
+                PLAIN_CHAINS + DL_PLAIN_CHAINS)}
             const_passes.append(const_cache("profiled third pass"))
             if const_passes[2][1] != const_passes[1][1] or \
                     const_passes[2][0] > const_passes[1][0]:
@@ -2838,7 +3082,8 @@ def main() -> int:
             chains["mimo"] = profile_pass(
                 lambda: run_loaded(device, m_words, m_scales, tmp,
                                    batch_size=MIMO_BATCH,
-                                   cell=mimo_cell.CELL)[2])
+                                   cell=mimo_cell.CELL)[2],
+                PLAIN_CHAINS + DL_PLAIN_CHAINS)
         with Phase("6 uplink: UL golden, UL cell (20 MHz, 1024 subframes, "
                    "8 PUSCH/sf, batch 256), UCI grant"):
             reset_counts()
@@ -3063,6 +3308,8 @@ def main() -> int:
                    "shape": {"K": K_ul, "B": B_ul, "n_iter": 2},
                    **{k: t_ul[k] for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "lanes_ms")}},
+            "pack": {"launches": DERM_LAUNCHES["loaded cell"][1],
+                     **tdm["pack"]},
             "stream": {"launches": n_fused_s},
             "ul_stream": {"launches": n_fused_us},
             "multihost": {"launches": mh["fused"],
@@ -3161,6 +3408,21 @@ def main() -> int:
             "chains": {k: {n: c for n, c in v.items()
                            if n.startswith(("pdsch_eq.", "pdsch_rx._eq_"))}
                        for k, v in chains.items()}})
+        line["kernels"].append({
+            "name": "cb_derm", "route": "cuda",
+            "source": "ltesniffer_tpu_torch/kernels/csrc/cb_derm.cu",
+            "replaces": CB_DERM_REPLACES,
+            "launches": DERM_LAUNCHES["loaded cell"][0], "library_ms": None,
+            "max_abs_err": max(c["max_abs_card"]
+                               for c in tdm["cases"].values()),
+            **{k: tdm[k] for k in ("ms", "device_ms", "host_ms", "plain_ms",
+                                   "bound_ms", "bound_by", "bytes", "shape",
+                                   "registers", "spill_bytes", "cases")},
+            "launches_per_path": dict(DERM_LAUNCHES),
+            "chains": {k: {n: c for n, c in v.items()
+                           if n.endswith(("_derm_turbo_static_fn",
+                                          "derm_plain", "_crc_pack"))}
+                       for k, v in chains.items()}})
         log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3176,8 +3438,8 @@ def main_scale_out() -> int:
         return 2
     sys.path.insert(0, REPO)
     from ltesniffer_tpu_torch import native
-    from ltesniffer_tpu_torch.kernels import bcjr, pdcch_tail, pdsch_eq
-    from ltesniffer_tpu_torch.kernels import turbo_decode, viterbi
+    from ltesniffer_tpu_torch.kernels import bcjr, cb_derm, pdcch_tail
+    from ltesniffer_tpu_torch.kernels import pdsch_eq, turbo_decode, viterbi
     from ltesniffer_tpu_torch.testing import loaded_cell
     kind = torch.cuda.get_device_name(0)
     count_tail_calls()
@@ -3186,10 +3448,10 @@ def main_scale_out() -> int:
             card = card_line()
             log(card)
             log(f"  {torch.cuda.device_count()} cards")
-            with concurrent.futures.ThreadPoolExecutor(5) as ex:
+            with concurrent.futures.ThreadPoolExecutor(6) as ex:
                 for f in [ex.submit(m.build)
                           for m in (turbo_decode, bcjr, viterbi, pdcch_tail,
-                                    pdsch_eq, native)]:
+                                    pdsch_eq, cb_derm, native)]:
                     f.result()
         loaded_stream, placed, _ = loaded_cell.build_stream()
         mh = scale_out("cuda", card, loaded_stream, placed, tmp)

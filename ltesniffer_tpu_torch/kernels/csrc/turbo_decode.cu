@@ -11,6 +11,11 @@
 //           with its termination tail in the last 4 columns
 //   outputs llr (B, K) f32, the a-posteriori LLR of decoder 2
 //           de-interleaved to natural order; bits (B, K) u8 = llr < 0
+//   or, from the packing entry (turbo_decode_pack_launch), B rows of
+//           1 + ceil(K / 32) int64 words: the popcount of the code block's
+//           CB CRC24B remainder, then its decided bits as u32 words, bit i
+//           in word i / 32 at bit i % 32 (pdsch_rx._crc_pack's row, which
+//           tb_finish reads); no LLRs
 //
 // n_iter iterations of two constituent decoders, each a windowed BCJR over
 // NW = K/W windows of W steps, whose boundary metrics (alpha at a window's
@@ -52,6 +57,18 @@
 //   instruction count).
 // - The recurrence itself is bcjr_step.cuh, shared with bcjr.cu; built with
 //   --fmad=false, the decided bits and LLRs equal the plain version's.
+// - The packing entry (template flag kPack) ends in an epilogue that reads
+//   the decided bits from shared memory: each thread packs one u32 word of
+//   one code block and adds the word's share of the CB CRC24B remainder.
+//   LTE's CRCs are linear over GF(2) (zero init, no final XOR, phy/crc.py):
+//   the remainder of M(x) x^24 mod g(x) is the XOR over words w of P_w(x)
+//   x^(K - 32 w - 8) mod g(x), P_w the word's 32 bits as a polynomial,
+//   first bit highest.  Each thread reduces P_w, multiplies by the powers
+//   x^(2^k) mod g of the exponent's set bits (CrcPow, made on the host)
+//   and XORs the result into the code block's word in shared memory; the
+//   row's first word is its popcount.  In place of (B, K) LLRs and bits
+//   the launch writes B (1 + K / 32) words, straight into the caller's
+//   buffer of rows, one launch for every code block of one K.
 //
 // Bound on the card: operations.  A decode does about 107 float32
 // operations per trellis step and constituent pass, 2 * n_iter * K * B
@@ -105,6 +122,39 @@ struct Qpp {
     if (p < 0) p += K;
   }
 };
+
+// x^(2^k) mod g(x) for LTE's CRC24B g, k < kPowTerms (exponents < 2^14).
+constexpr int kPowTerms = 14;
+constexpr uint32_t kCrc24bFull = 0x1800063u;   // g(x) with its x^24 term
+struct CrcPow {
+  uint32_t p[kPowTerms];
+};
+
+// a b mod g(x) for a, b of degree < 24
+__device__ __forceinline__ uint32_t crc_mulmod(uint32_t a, uint32_t b) {
+  uint32_t r = 0;
+#pragma unroll 1
+  for (int i = 23; i >= 0; --i) {
+    r = (r << 1) ^ ((r & 0x800000u) ? kCrc24bFull : 0u);
+    r ^= ((b >> i) & 1u) ? a : 0u;
+  }
+  return r;
+}
+
+// The share of one u32 word of decided bits (bit i = position 32 w + i)
+// in the CRC24B remainder of a code block: P(x) x^e mod g(x), P the word
+// with position 32 w as its x^31 term, e = K - 32 w - 8.
+__device__ __forceinline__ uint32_t crc_word(uint32_t word, int e,
+                                             const CrcPow& pw) {
+  uint32_t r = __brev(word);
+#pragma unroll
+  for (int i = 31; i >= 24; --i)
+    if ((r >> i) & 1u) r ^= kCrc24bFull << (i - 24);
+#pragma unroll
+  for (int k = 0; k < kPowTerms; ++k)
+    if ((e >> k) & 1) r = crc_mulmod(r, pw.p[k]);
+  return r;
+}
 
 // Shared-memory slot of trellis position p: one pad float after every
 // W-window, so that the 32 threads of a warp, each at step k of its own
@@ -206,12 +256,13 @@ __host__ __device__ __forceinline__ int block_floats(int K, int NW) {
   return 4 * (K + NW) + 32 * NW + 32;
 }
 
-template <int W>
+template <int W, bool kPack>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 turbo_decode_kernel(const float* __restrict__ d_llrs,
                     float* __restrict__ llr_out,
-                    uint8_t* __restrict__ bits_out, int B, int K, int n_iter,
-                    int G, Qpp q) {
+                    uint8_t* __restrict__ bits_out,
+                    long long* __restrict__ rows_out, int B, int K,
+                    int n_iter, int G, Qpp q, CrcPow pw) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int NW = K / W;
@@ -304,21 +355,52 @@ turbo_decode_kernel(const float* __restrict__ d_llrs,
   }
   __syncthreads();
 
-  for (int g2 = 0; g2 < G; ++g2) {
-    if (b0 + g2 >= B) break;
-    const float* e = smem + g2 * SB + 3 * KP;
-    const size_t o = static_cast<size_t>(b0 + g2) * K;
-    for (int p = tid; p < K; p += nthr) {
-      const float v = e[pad<W>(p)];
-      llr_out[o + p] = v;
-      bits_out[o + p] = v < 0.f ? 1 : 0;
+  if constexpr (kPack) {
+    // the boundary metrics are spent: a code block's first one holds its
+    // CRC remainder
+    const int Wk = (K + 31) >> 5;
+    for (int g2 = tid; g2 < G; g2 += nthr)
+      reinterpret_cast<uint32_t*>(smem + g2 * SB + 4 * KP)[0] = 0u;
+    __syncthreads();
+    for (int t = tid; t < G * Wk; t += nthr) {
+      const int g2 = t / Wk;
+      const int w = t - g2 * Wk;
+      if (b0 + g2 >= B) break;
+      const float* e = smem + g2 * SB + 3 * KP;
+      uint32_t word = 0;
+      const int p0 = 32 * w;
+      const int np = min(32, K - p0);
+      for (int i = 0; i < np; ++i)
+        word |= (e[pad<W>(p0 + i)] < 0.f ? 1u : 0u) << i;
+      rows_out[static_cast<size_t>(b0 + g2) * (1 + Wk) + 1 + w] =
+          static_cast<long long>(word);
+      atomicXor(reinterpret_cast<uint32_t*>(smem + g2 * SB + 4 * KP),
+                crc_word(word, K - p0 - 8, pw));
+    }
+    __syncthreads();
+    for (int g2 = tid; g2 < G; g2 += nthr) {
+      if (b0 + g2 >= B) break;
+      rows_out[static_cast<size_t>(b0 + g2) * (1 + Wk)] = __popc(
+          reinterpret_cast<const uint32_t*>(smem + g2 * SB + 4 * KP)[0]);
+    }
+  } else {
+    for (int g2 = 0; g2 < G; ++g2) {
+      if (b0 + g2 >= B) break;
+      const float* e = smem + g2 * SB + 3 * KP;
+      const size_t o = static_cast<size_t>(b0 + g2) * K;
+      for (int p = tid; p < K; p += nthr) {
+        const float v = e[pad<W>(p)];
+        llr_out[o + p] = v;
+        bits_out[o + p] = v < 0.f ? 1 : 0;
+      }
     }
   }
 }
 
-template <int W>
-cudaError_t launch(const float* d, float* llr, uint8_t* bits, int B, int K,
-                   int n_iter, int G, const Qpp& q, cudaStream_t stream) {
+template <int W, bool kPack>
+cudaError_t launch(const float* d, float* llr, uint8_t* bits,
+                   long long* rows, int B, int K, int n_iter, int G,
+                   const Qpp& q, const CrcPow& pw, cudaStream_t stream) {
   // The shared-memory limit is an attribute of the kernel on the device
   // that is current when it is set, so it is set once per device (the
   // wrapper makes the tensors' device current); devices past the table's
@@ -329,7 +411,7 @@ cudaError_t launch(const float* d, float* llr, uint8_t* bits, int B, int K,
   if (e != cudaSuccess) return e;
   const bool known = dev >= 0 && dev < kMaxDevices;
   if (!known || !attr_set[dev].load()) {
-    e = cudaFuncSetAttribute(turbo_decode_kernel<W>,
+    e = cudaFuncSetAttribute(turbo_decode_kernel<W, kPack>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kMaxSmem);
     if (e != cudaSuccess) return e;
@@ -342,21 +424,37 @@ cudaError_t launch(const float* d, float* llr, uint8_t* bits, int B, int K,
   if (threads > kMaxThreads || smem > static_cast<size_t>(kMaxSmem))
     return cudaErrorInvalidValue;
   const int blocks = (B + G - 1) / G;
-  turbo_decode_kernel<W><<<blocks, threads, smem, stream>>>(
-      d, llr, bits, B, K, n_iter, G, q);
+  turbo_decode_kernel<W, kPack><<<blocks, threads, smem, stream>>>(
+      d, llr, bits, rows, B, K, n_iter, G, q, pw);
   return cudaGetLastError();
 }
 
-}  // namespace
+// x^(2^k) mod g(x), k < kPowTerms, for LTE's CRC24B, made once.
+const CrcPow& crc24b_powers() {
+  static const CrcPow pw = [] {
+    CrcPow t{};
+    auto mulmod = [](uint32_t a, uint32_t b) {
+      uint32_t r = 0;
+      for (int i = 23; i >= 0; --i) {
+        r = (r << 1) ^ ((r & 0x800000u) ? kCrc24bFull : 0u);
+        r ^= ((b >> i) & 1u) ? a : 0u;
+      }
+      return r;
+    };
+    uint32_t x = 2u;                    // x^1
+    for (int k = 0; k < kPowTerms; ++k) {
+      t.p[k] = x;
+      x = mulmod(x, x);
+    }
+    return t;
+  }();
+  return pw;
+}
 
-// Plain C entry point, loaded with ctypes.  d_llrs, llr and bits are device
-// pointers of contiguous tensors ((B, 3, K+4) f32, (B, K) f32, (B, K) u8);
-// (f1, f2) are K's QPP coefficients; W is the window, G the code blocks per
-// CTA; stream is a cudaStream_t.  Returns the cudaError_t of the launch
-// (0 on success); a shape it does not take returns cudaErrorInvalidValue.
-extern "C" int turbo_decode_launch(const void* d_llrs, void* llr, void* bits,
-                                   int B, int K, int n_iter, int f1, int f2,
-                                   int W, int G, void* stream) {
+template <bool kPack>
+int dispatch_w(const void* d_llrs, void* llr, void* bits, void* rows, int B,
+               int K, int n_iter, int f1, int f2, int W, int G,
+               void* stream) {
   if (B <= 0 || n_iter <= 0 || G <= 0 || K < 40 || K > 6144 || K % W != 0 ||
       f1 <= 0 || f1 >= K || f2 <= 0 || f2 >= K)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -364,15 +462,44 @@ extern "C" int turbo_decode_launch(const void* d_llrs, void* llr, void* bits,
   const float* pd = static_cast<const float*>(d_llrs);
   float* pl = static_cast<float*>(llr);
   uint8_t* pb = static_cast<uint8_t*>(bits);
+  long long* pr = static_cast<long long*>(rows);
+  const CrcPow& pw = crc24b_powers();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (W) {
     case 8:
-      return static_cast<int>(launch<8>(pd, pl, pb, B, K, n_iter, G, q, s));
+      return static_cast<int>(
+          launch<8, kPack>(pd, pl, pb, pr, B, K, n_iter, G, q, pw, s));
     case 16:
-      return static_cast<int>(launch<16>(pd, pl, pb, B, K, n_iter, G, q, s));
+      return static_cast<int>(
+          launch<16, kPack>(pd, pl, pb, pr, B, K, n_iter, G, q, pw, s));
     case 32:
-      return static_cast<int>(launch<32>(pd, pl, pb, B, K, n_iter, G, q, s));
+      return static_cast<int>(
+          launch<32, kPack>(pd, pl, pb, pr, B, K, n_iter, G, q, pw, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes.  d_llrs, llr, bits and rows
+// are device pointers of contiguous tensors ((B, 3, K+4) f32, (B, K) f32,
+// (B, K) u8, (B, 1 + ceil(K / 32)) int64); (f1, f2) are K's QPP
+// coefficients; W is the window, G the code blocks per CTA; stream is a
+// cudaStream_t.  Each returns the cudaError_t of the launch (0 on
+// success); a shape it does not take returns cudaErrorInvalidValue.
+extern "C" int turbo_decode_launch(const void* d_llrs, void* llr, void* bits,
+                                   int B, int K, int n_iter, int f1, int f2,
+                                   int W, int G, void* stream) {
+  return dispatch_w<false>(d_llrs, llr, bits, nullptr, B, K, n_iter, f1, f2,
+                           W, G, stream);
+}
+
+// The packing entry: the same decode, each code block written as its row
+// [CB CRC24B remainder popcount | u32 words of its bits] at `rows`.
+extern "C" int turbo_decode_pack_launch(const void* d_llrs, void* rows, int B,
+                                        int K, int n_iter, int f1, int f2,
+                                        int W, int G, void* stream) {
+  return dispatch_w<true>(d_llrs, nullptr, nullptr, rows, B, K, n_iter, f1,
+                          f2, W, G, stream);
 }

@@ -13,8 +13,10 @@ The per-RE math (gather, equalize, demap, Gold descramble) of every
 single-layer grant of a dispatch runs as one launch of
 `kernels/pdsch_eq.py`'s kernel on the card (its plain torch version on the
 CPU), a two-codeword grant's as one launch of `kernels/mimo_eq.py`'s; the
-turbo decoder and the transport-block finish run on the grids' device too;
-the thin glue (segmentation sizes, scatter positions, descriptors) is
+de-rate-match of every code block (`kernels/cb_derm.py`), the turbo
+decoder with the CB CRC24B and packing in its epilogue, and the
+transport-block finish run on the grids' device too, a fixed set of
+launches a dispatch; the thin glue (segmentation sizes, descriptors) is
 NumPy on the host.  Integer words that the JAX package keeps as uint32 are
 int64 here (torch's uint32 has little CUDA support) and become uint32 on
 the host.
@@ -30,7 +32,8 @@ import torch
 from ltesniffer_tpu_torch.phy import crc, pdsch as pdsch_mod, turbo as turbo_mod
 from ltesniffer_tpu_torch.phy import uci as uci_mod
 from ltesniffer_tpu_torch.phy.params import CellConfig
-from ltesniffer_tpu_torch.kernels import mimo_eq, pdsch_eq, tb_finish
+from ltesniffer_tpu_torch.kernels import cb_derm, mimo_eq, pdsch_eq
+from ltesniffer_tpu_torch.kernels import tb_finish, turbo_decode
 from ltesniffer_tpu_torch.kernels import turbo as kturbo
 from ltesniffer_tpu_torch.kernels.cplx import const
 from ltesniffer_tpu_torch.kernels.pdsch_eq import (  # noqa: F401
@@ -443,35 +446,9 @@ def _stack_rows(eq_outs: List, Wm: int):
     return torch.cat(parts, dim=0) if len(parts) > 1 else parts[0]
 
 
-@prof.factory(512)
-def _derm_static_maps(K: int, F: int):
-    """Static circular-buffer structure for one (K, F):
-
-    nonnull_pos: (L,) w-positions that carry transmitted bits (NULL pads and
-    filler positions excluded), in cyclic order;
-    INVP: (3*(K+4),) int64 mapping each d-stream position to its rank in
-    nonnull_pos (or L for never-transmitted positions — filler/pad);
-    L: the selection cycle length (the circular buffer revisits the same
-    positions every L LLRs)."""
-    m = turbo_mod.turbo_rm_maps(K)
-    Kp = K + 4
-    flat_null = np.zeros(3 * Kp, bool)
-    flat_null[:F] = True
-    flat_null[Kp:Kp + F] = True
-    w_valid = m["w_src"] >= 0
-    w_null = ~w_valid | (w_valid
-                         & flat_null[np.where(w_valid, m["w_src"], 0)])
-    nonnull_pos = np.nonzero(~w_null)[0]
-    L = len(nonnull_pos)
-    INVP = np.full(3 * Kp, L, np.int64)
-    INVP[m["w_src"][nonnull_pos]] = np.arange(L, dtype=np.int64)
-    return nonnull_pos, INVP, L
-
-
 def _derm_laps(K: int, F: int, E: int) -> int:
     """Number of circular-buffer laps the selection of E bits spans."""
-    _, _, L = _derm_static_maps(K, F)
-    return max(1, -(-E // L))
+    return cb_derm.laps(K, F, E)
 
 
 def _crc_pack(bits, K: int):
@@ -517,11 +494,14 @@ def _derm_turbo_static_fn(K: int, F: int, laps: int, rv: int, n_iter: int,
                           src_key: tuple = ("lin",)):
     """Finisher for one code-block-size group: window select +
     de-rate-match + filler LLRs + (HARQ prior add) + turbo decode + CB
-    CRC24B + bit packing.
+    CRC24B + bit packing: the uplink's route (the downlink's batched
+    dispatch takes `kernels/cb_derm.py` and the turbo kernel's packing
+    entry, `_turbo_only_fn`).
 
-    The de-rate-match runs as constant index maps (fold the E LLRs over
-    circular-buffer laps -> rotate by the rv start -> inverse sub-block
-    permutation).  The exact E and each row's bit offset ride as data.
+    The de-rate-match runs as constant index maps (`cb_derm.fold`: fold
+    the E LLRs over circular-buffer laps -> rotate by the rv start ->
+    inverse sub-block permutation).  The exact E and each row's bit offset
+    ride as data.
 
     src_key selects the per-row LLR window within its rows-matrix row:
       ("lin",)                      contiguous slice at `off` (every DL
@@ -535,37 +515,23 @@ def _derm_turbo_static_fn(K: int, F: int, laps: int, rv: int, n_iter: int,
       -> (fused (n*(1+Wk),) int64 flat [crc_rem | packed bits] rows,
           d (n, 3, K+4) f32 combined LLRs)
     """
-    Kp = K + 4
-    nonnull_pos, INVP, L = _derm_static_maps(K, F)
-    k0 = turbo_mod.rv_start(K, rv)
-    s0 = int(np.searchsorted(nonnull_pos, k0)) % L
-    EB = laps * L
+    s0 = cb_derm.start_rank(K, F, rv)
+    EB = laps * cb_derm.static_maps(K, F)[2]
     lin = src_key[0] == "lin"
     if not lin:
         SRC, SRC_OK = _uci_src_map(EB, src_key)
     dec = kturbo.make_decoder(K, n_iter)
 
     def run(rows_mat, rows, e_true, off: int, prior=None):
-        dev = rows_mat.device
-        n = rows.shape[0]
-        win = rows_mat[rows]                              # (n, Wm)
-        ok = torch.arange(EB, device=dev)[None, :] < e_true[:, None]
         if lin:
-            winp = torch.nn.functional.pad(win, (0, EB))
-            off = max(0, min(int(off), winp.shape[1] - EB))  # clamped slice
-            x = winp[:, off:off + EB]
+            x = cb_derm.window(rows_mat, rows, e_true, off, EB)
         else:
-            x = win[:, const(SRC, dev)]                   # (n, EB)
-            ok = ok & const(SRC_OK, dev)[None, :]
-        x = torch.where(ok, x, torch.zeros((), dtype=x.dtype, device=dev))
-        f = x.reshape(n, laps, L).sum(dim=1) if laps > 1 else x
-        acc = torch.roll(f, s0, dims=1)
-        accp = torch.nn.functional.pad(acc, (0, 1))       # rank L -> 0.0
-        d = accp[:, const(INVP, dev)].reshape(n, 3, Kp)
-        if F:
-            d[:, :2, :F] = 1e4       # fillers: known zeros
-        if prior is not None:
-            d = d + prior
+            dev = rows_mat.device
+            x = rows_mat[rows][:, const(SRC, dev)]        # (n, EB)
+            ok = (torch.arange(EB, device=dev)[None, :] < e_true[:, None]) \
+                & const(SRC_OK, dev)[None, :]
+            x = torch.where(ok, x, torch.zeros((), dtype=x.dtype, device=dev))
+        d = cb_derm.fold(x, K, F, laps, s0, prior)
         bits, _ = dec(d)                                  # (n, K) u8
         return _crc_pack(bits, K).reshape(-1), d
 
@@ -574,15 +540,28 @@ def _derm_turbo_static_fn(K: int, F: int, laps: int, rv: int, n_iter: int,
 
 @prof.factory(64)
 def _turbo_only_fn(K: int, n_iter: int):
-    """Iteration-escalation retry: decode directly from stored (n, 3, K+4)
-    combined LLRs (no re-equalize / de-rate-match) at a higher iteration
-    count — the batched analog of srsRAN's per-CB early stop (primary pass
-    runs few iterations; only CRC failures pay for more)."""
+    """Decode (n, 3, K+4) combined LLRs of one K into (n, 1+Wk) rows
+    [CB CRC24B remainder popcount | packed bits]: the batched dispatch's
+    decode (one launch per K) and the iteration-escalation retry (straight
+    from the stored combined LLRs at a higher iteration count — the
+    batched analog of srsRAN's per-CB early stop: the primary pass runs
+    few iterations; only CRC failures pay for more).
+
+    run(d, out=None, word_off=0): on the card one launch of the turbo
+    kernel's packing entry, on the CPU the decoder and `_crc_pack`; with
+    `out` (a 1-d int64 tensor) the rows are written into it from word
+    `word_off` on."""
     dec = kturbo.make_decoder(K, n_iter)
 
-    def run(d):
-        bits, _ = dec(d)
-        return _crc_pack(bits, K)
+    def run(d, out=None, word_off: int = 0):
+        d = d.to(torch.float32)
+        if d.device.type == "cuda":
+            return turbo_decode.turbo_decode_pack_cuda(
+                d.contiguous(), K, n_iter, out, word_off)
+        rows = _crc_pack(dec(d)[0], K)
+        if out is not None:
+            out[word_off:word_off + rows.numel()] = rows.reshape(-1)
+        return rows
 
     return run
 
@@ -595,13 +574,15 @@ class PendingPdschBatch:
     jobs: List[GrantJob]
     results: List[Optional[PdschResult]]
     seg_of: Dict[int, object]
-    group_rows: list          # [(K, Wk, n_b, [(ji, ci, F), ...]), ...]
-    fused_dev: object         # flat int64 device tensor: per-group (n, 1+Wk)
+    group_rows: list          # [(K, Wk, n_K, [(ji, ci, F), ...]), ...],
+                              # one a K, ascending
+    fused_dev: object         # flat int64 device tensor: per-K (n_K, 1+Wk)
                               # row blocks concatenated
     n_re_of: Dict[int, int] = dataclasses.field(default_factory=dict)
-    # (ji, ci) -> LazyRow into the dispatch's combined-LLR outputs, kept for
-    # the iteration-escalation retry (decode failures re-run at higher
-    # n_iter straight from these, skipping equalize/de-rate-match)
+    # (ji, ci) -> LazyRow into the dispatch's combined-LLR slabs (one
+    # (n_K, 3, K+4) slab a K), kept for HARQ and the iteration-escalation
+    # retry (decode failures re-run at higher n_iter straight from these,
+    # skipping equalize/de-rate-match)
     d_of: Dict[Tuple[int, int], object] = dataclasses.field(
         default_factory=dict)
     # the `tb_finish` launch over fused_dev, read by `finish_grants_batch`
@@ -609,6 +590,9 @@ class PendingPdschBatch:
     # the pinned host buffer of the eq/demap launch's descriptors, kept
     # until the batch's tb_finish output has been read
     eq_host: Optional[torch.Tensor] = None
+    # the de-rate-match's table, the pinned host buffer of its words and
+    # the tensors their addresses point into (maps, priors), kept the same
+    derm: Optional[tuple] = None
 
 
 @dataclasses.dataclass
@@ -664,11 +648,14 @@ def dispatch_grants_batch(grids, h, noise_var, cell: CellConfig,
                           n_iter: int = 8) -> PendingPdschBatch:
     """Queue the full decode of many grants on the device; no host reads.
 
-    Equalize/demap runs once for every grant (one `pdsch_eq` launch);
-    de-rate-match + HARQ combine + turbo + CB CRC + packing run per
-    code-block size K; one `tb_finish` launch then checks every transport
-    block's CRCs and writes its payload bytes.  Every output the host
-    needs returns in ONE uint8 buffer (`pb.tb.out`).
+    Equalize/demap runs once for every grant (one `pdsch_eq` launch); the
+    de-rate-match and HARQ combine of every code block from one pinned
+    descriptor upload (one `cb_derm` launch per dependency round); turbo +
+    CB CRC + packing once per code-block size K (the turbo kernel's
+    packing entry, `_turbo_only_fn`); one `tb_finish` launch then checks
+    every transport block's CRCs and writes its payload bytes.  No
+    blocking upload.  Every output the host needs returns in ONE uint8
+    buffer (`pb.tb.out`).
     """
     dev = grids.device
     results: List[Optional[PdschResult]] = [None] * len(jobs)
@@ -691,124 +678,125 @@ def dispatch_grants_batch(grids, h, noise_var, cell: CellConfig,
         return PendingPdschBatch(jobs, results, {}, [], None, n_re_of)
     # --- eq/demap of every grant: row r of rows_mat is grant live[r] -----
     rows_mat, eq_host = _eq_rows(grids, h, noise_var, table, re_tab, cell)
-    row_of = {ji: r for r, ji in enumerate(live)}
+    pb = _dispatch_code_blocks(rows_mat, jobs, live, n_re_of, soft_buffers,
+                               n_iter)
+    pb.results, pb.eq_host = results, eq_host
+    return pb
 
+
+@prof.factory(4096)
+def _cb_plan(tbs: int, G: int, qm: int) -> tuple:
+    """(segmentation, ((K, F, E, window start) of each code block)) of a
+    transport block of tbs bits over G bits at qm, cached: a cell
+    re-issues the same sizes.  The segmentation is shared: read it only."""
+    seg = turbo_mod.segment_sizes(tbs)
+    es = pdsch_mod.cb_rate_match_sizes(G, seg.C, qm)
+    starts = np.cumsum([0] + es[:-1]).tolist()
+    return seg, tuple((K, seg.F if c == 0 else 0, E, off) for c, (K, E, off)
+                      in enumerate(zip(seg.K, es, starts)))
+
+
+def _dispatch_code_blocks(rows_mat, jobs: List[GrantJob], live: List[int],
+                          n_re_of: Dict[int, int],
+                          soft_buffers: Optional[Dict],
+                          n_iter: int) -> PendingPdschBatch:
+    """The code blocks of jobs `live` (job live[r]'s LLRs in row r of
+    `rows_mat`, its RE count in `n_re_of`) through the de-rate-match, the
+    turbo decode and `tb_finish`: one descriptor upload, one `cb_derm`
+    launch per dependency round, one turbo launch per K, one `tb_finish`
+    launch.  Updates `soft_buffers` (lazy references, no device ops)."""
+    dev = rows_mat.device
+    row_of = {ji: r for r, ji in enumerate(live)}
     # --- collect code blocks, grouped by K ------------------------------
     with prof.span("pd_collect_cb"):
         seg_of: Dict[int, object] = {}
         table = tb_finish.Table()
         tb_of: Dict[int, int] = {}
-        # K -> [(ji, ci, F, E, off, rv, key, rt)]
+        # K -> [(ji, ci, F, E, off, rv, key, retx)]
         by_k: Dict[int, list] = {}
         for ji in live:
             j = jobs[ji]
-            Gbits = n_re_of[ji] * j.qm
-            seg = turbo_mod.segment_sizes(j.tbs)
+            seg, cbs = _cb_plan(j.tbs, n_re_of[ji] * j.qm, j.qm)
             seg_of[ji] = seg
             tb_of[ji] = table.add(j.tbs, seg)
-            es = pdsch_mod.cb_rate_match_sizes(Gbits, seg.C, j.qm)
-            off = 0
-            for ci_, (K, E) in enumerate(zip(seg.K, es)):
-                F = seg.F if ci_ == 0 else 0
-                key_ci = ((j.harq_key, ci_)
-                          if soft_buffers is not None
-                          and j.harq_key is not None else None)
+            key = j.harq_key if soft_buffers is not None else None
+            for ci_, (K, F, E, off) in enumerate(cbs):
                 by_k.setdefault(K, []).append(
-                    (ji, ci_, F, E, off, j.rv, key_ci, j.is_retx))
-                off += E
+                    (ji, ci_, F, E, off, j.rv,
+                     None if key is None else (key, ci_), j.is_retx))
 
-    # --- per-K device dispatch -------------------------------------------
-    group_rows = []
-    fused_parts = []               # flat 1-D segments, one per sub-group
-    fused_off = 0                  # their words so far
+        # One descriptor a code block; each K's code blocks are one slab of
+        # (n_K, 3, K+4) combined LLRs and one block of fused rows, in time
+        # order (ji ascending).  In-batch retransmission chains: a retx
+        # whose previous same-key transmission sits in THIS batch combines
+        # with that code block's output, so it goes one dependency round
+        # later (depth advances only across actual retx links, not mere
+        # key repetition); a retx whose previous transmission is an earlier
+        # batch's reads that soft buffer by address.
+        derm = cb_derm.Table()
+        group_rows = []
+        slabs = []                 # (K, float offset, n_K, word offset)
+        out_off = word_off = 0
+        last_occ: Dict = {}        # key_ci -> LAST (time-ordered) (ji, ci)
+        for K, rows in sorted(by_k.items()):
+            Kp, Wk = K + 4, (K + 31) // 32
+            rows.sort(key=lambda r: (r[0], r[1]))
+            occ_prev: Dict = {}            # key_ci -> (ji, ci) of last occ.
+            at: Dict[tuple, tuple] = {}    # (ji, ci) -> (slab row, depth)
+            for r_i, (ji, ci_, F, E, off, rv, key, retx) in enumerate(rows):
+                depth, prior = 0, None
+                if retx and key is not None:
+                    prev = occ_prev.get(key)
+                    if prev is not None:
+                        p_row, p_depth = at[prev]
+                        depth = p_depth + 1
+                        prior = ("out", out_off + p_row * 3 * Kp)
+                    elif (key in soft_buffers
+                            and tuple(soft_buffers[key].shape) == (3, Kp)):
+                        # prior from an earlier batch; a K mismatch means
+                        # the TBS changed -> stored soft bits invalid
+                        # (reference stored-TBS rule, `HARQ.cc:71-130`)
+                        prior = _buffer_value(soft_buffers[key])
+                if key is not None:
+                    occ_prev[key] = (ji, ci_)
+                at[(ji, ci_)] = (r_i, depth)
+                derm.add(row_of[ji], off, E, K, F, rv,
+                         out_off + r_i * 3 * Kp, depth, prior)
+                table.set_row(tb_of[ji], ci_, word_off + r_i * (1 + Wk))
+            slabs.append((K, out_off, len(rows), word_off))
+            group_rows.append((K, Wk, len(rows),
+                               [(r[0], r[1], r[2]) for r in rows]))
+            out_off += len(rows) * 3 * Kp
+            word_off += len(rows) * (1 + Wk)
+            for key, jici in occ_prev.items():
+                last = last_occ.get(key)
+                if last is None or jici[0] >= last[0]:
+                    last_occ[key] = jici
+
+    # --- one descriptor upload, one de-rate-match launch a round, one
+    # turbo launch a K writing the fused rows ----------------------------
+    with prof.span("pd_pos_build"):
+        out = torch.empty(out_off, dtype=torch.float32, device=dev)
+        fused_dev = torch.empty(word_off, dtype=torch.int64, device=dev)
+        keep: list = []
+        derm_host, desc = cb_derm.upload(derm, dev, out, keep)
     d_of: Dict[Tuple[int, int], LazyRow] = {}
-    last_occ: Dict = {}            # key_ci -> LAST (time-ordered) (ji, ci)
-    for K, rows in sorted(by_k.items()):
-        Wk = (K + 31) // 32
-        # time order (ji ascending): the in-batch retx chaining below walks
-        # occurrences sequentially, and rows arrive grouped by eq-group
-        rows.sort(key=lambda r: (r[0], r[1]))
-        # In-batch retransmission chains: a retx whose previous same-key
-        # transmission sits in THIS batch must combine with that row's
-        # output.  Rows split into dependency-DEPTH rounds (depth advances
-        # only across actual retx links, not mere key repetition), and each
-        # chained row's prior is taken from its explicit predecessor row
-        # (d_of LazyRow) rather than a mid-dispatch buffer store.
-        occ_prev: Dict = {}            # key_ci -> (ji, ci) of last occurrence
-        depth_of: Dict[tuple, int] = {}
-        prior_src: Dict[int, tuple] = {}   # id(row) -> ("row",(ji,ci)) | ("buf",key)
-        rounds: List[list] = []
-        for r in rows:
-            key = r[6]
-            d_ = 0
-            if r[7] and key is not None:
-                prev = occ_prev.get(key)
-                if prev is not None:
-                    d_ = depth_of[prev] + 1
-                    prior_src[id(r)] = ("row", prev)
-                elif (key in soft_buffers
-                        and tuple(soft_buffers[key].shape) == (3, K + 4)):
-                    # prior from an earlier batch; a K mismatch means the
-                    # TBS changed -> stored soft bits invalid (reference
-                    # stored-TBS rule, `HARQ.cc:71-130`)
-                    prior_src[id(r)] = ("buf", key)
-            if key is not None:
-                occ_prev[key] = (r[0], r[1])
-                depth_of[(r[0], r[1])] = d_
-            while len(rounds) <= d_:
-                rounds.append([])
-            rounds[d_].append(r)
-
-        for rnd in rounds:
-            # sub-group by (prior-class, F, laps, rv, off)
-            subs: Dict[tuple, list] = {}
-            for r in rnd:
-                skey = (id(r) in prior_src, r[2],
-                        _derm_laps(K, r[2], r[3]), r[5], r[4])
-                subs.setdefault(skey, []).append(r)
-            for (has_prior, F, laps, rv, off), sub in sorted(
-                    subs.items(), key=lambda kv: kv[0][1:]):
-                n_b = len(sub)
-                with prof.span("pd_pos_build"):
-                    rows_idx = np.zeros(n_b, np.int64)
-                    e_true = np.zeros(n_b, np.int64)
-                    priors = []
-                    for r_i, (ji, ci_, _F, E, _off, _rv, key_ci, _rt) \
-                            in enumerate(sub):
-                        rows_idx[r_i] = row_of[ji]
-                        e_true[r_i] = E
-                        if has_prior:
-                            kind, ref = prior_src[id(sub[r_i])]
-                            priors.append(d_of[ref] if kind == "row"
-                                          else soft_buffers[ref])
-                fn = _derm_turbo_static_fn(K, F, laps, rv, n_iter)
-                with prof.span("pd_turbo_call"):
-                    prior = (_gather_lazy_rows(priors, dev) if has_prior
-                             else None)
-                    fused, d = fn(rows_mat, _t(rows_idx, dev),
-                                  _t(e_true, dev), off, prior)
-                for r_i, (ji, ci_, *_rest) in enumerate(sub):
-                    d_of[(ji, ci_)] = LazyRow(d, r_i)
-                    table.set_row(tb_of[ji], ci_, fused_off + r_i * (1 + Wk))
-                fused_off += int(fused.shape[0])
-                fused_parts.append(fused)
-                group_rows.append((K, Wk, n_b,
-                                   [(r[0], r[1], r[2]) for r in sub]))
-        for key, jici in occ_prev.items():
-            last = last_occ.get(key)
-            if last is None or jici[0] >= last[0]:
-                last_occ[key] = jici
+    with prof.span("pd_turbo_call"):
+        cb_derm.derm(rows_mat, derm, desc, out)
+        for (K, o, n, w), (_K, _Wk, _n, items) in zip(slabs, group_rows):
+            slab = out[o:o + n * 3 * (K + 4)].view(n, 3, K + 4)
+            _turbo_only_fn(K, n_iter)(slab, fused_dev, w)
+            for r_i, (ji, ci_, _F) in enumerate(items):
+                d_of[(ji, ci_)] = LazyRow(slab, r_i)
     # the surviving HARQ soft buffer for each key is its LAST (time-ordered)
     # occurrence's combined LLRs ACROSS K groups (a mid-batch TBS change
     # must not leave a stale earlier-K buffer) — lazy refs, no device ops
     for key, jici in last_occ.items():
         soft_buffers[key] = d_of[jici]
-    fused_dev = (torch.cat(fused_parts) if len(fused_parts) > 1
-                 else fused_parts[0])
-    return PendingPdschBatch(jobs, results, seg_of, group_rows, fused_dev,
-                             n_re_of, d_of=d_of,
+    return PendingPdschBatch(jobs, [None] * len(jobs), seg_of, group_rows,
+                             fused_dev, n_re_of, d_of=d_of,
                              tb=_launch_tb_finish(fused_dev, table, tb_of),
-                             eq_host=eq_host)
+                             derm=(derm, derm_host, keep))
 
 
 def finish_grants_batch(pb: PendingPdschBatch,
@@ -822,7 +810,7 @@ def finish_grants_batch(pb: PendingPdschBatch,
         return results
     with prof.span("pf_d2h"):
         buf = _host(pb.tb.out, site)     # ONE read for the whole batch
-    pb.eq_host = None
+    pb.eq_host = pb.derm = None
     with prof.span("pf_assemble"):
         for ji, r in _tb_results(pb, pb.tb, buf, soft_buffers).items():
             results[ji] = r
@@ -880,16 +868,19 @@ def escalate_dispatch(pb: PendingPdschBatch, esc_idx: List[int],
     prof.count("pdsch_cb_escalated", sum(len(r) for r in by_k.values()))
     if not tb_of:
         return None
-    parts, off = [], 0
+    dev = pb.fused_dev.device
+    fused = torch.empty(sum(len(rows) * (1 + (K + 31) // 32)
+                            for K, rows in by_k.items()),
+                        dtype=torch.int64, device=dev)
+    off = 0
     for K, rows in sorted(by_k.items()):
-        d = _gather_lazy_rows([r[2] for r in rows], pb.fused_dev.device)
-        fused = _turbo_only_fn(K, n_iter)(d)
+        Wk = (K + 31) // 32
+        d = _gather_lazy_rows([r[2] for r in rows], dev)
+        _turbo_only_fn(K, n_iter)(d, fused, off)
         for r_i, (ji, ci_, _) in enumerate(rows):
-            table.set_row(tb_of[ji], ci_, off + r_i * int(fused.shape[1]))
-        off += fused.numel()
-        parts.append(fused.reshape(-1))
-    return _launch_tb_finish(torch.cat(parts) if len(parts) > 1
-                             else parts[0], table, tb_of)
+            table.set_row(tb_of[ji], ci_, off + r_i * (1 + Wk))
+        off += len(rows) * (1 + Wk)
+    return _launch_tb_finish(fused, table, tb_of)
 
 
 def escalate_finish(pb: PendingPdschBatch, h,

@@ -1034,3 +1034,162 @@ def test_pdsch_eq_upload_does_not_synchronize(card):
     syncs = [(w.filename, w.lineno) for w in caught
              if "synchroniz" in str(w.message)]
     assert not [f for f in syncs if f[0].startswith(port)], syncs
+
+
+# --- cb_derm and the turbo kernel's packing entry ---------------------------
+# The plain de-rate-match on the card sums a code block's laps with
+# torch's CUDA reduction, whose order over the lap axis is not the
+# kernel's (ascending, as the host sums them), so a float may move by the
+# rounding of a reordered sum: at most (laps - 1) ulps of the sum of the
+# laps' magnitudes.  With at most 10 laps of LLRs below 50 (the batches'
+# are N(0, 3) plus priors) that is 9 * 2^-23 * 500 < 6e-4.  The kernel
+# must equal the plain version on the host float for float.
+DERM_ATOL = 6e-4
+
+
+def _derm_on(device, name, seed):
+    """(table, rows_mat, bufs, out) of a derm_batches batch on `device`,
+    the table as the dispatch builds it there."""
+    from ltesniffer_tpu_torch.testing import derm_batches
+    rng = np.random.default_rng(seed)
+    jobs = derm_batches.BATCHES[name]()
+    rows_mat, live, n_re = derm_batches.batch(jobs, rng, device=device)
+    bufs = derm_batches.stored(jobs, np.random.default_rng(seed + 1),
+                               device=device)
+    tab = derm_batches.table_of(rows_mat, jobs, live, n_re, dict(bufs))
+    n_out = max(c[8] + 3 * (c[3] + 4) for c in tab.cb)
+    return tab, rows_mat, bufs, n_out, (jobs, live, n_re)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["etm31", "loaded", "odd"])
+def test_cb_derm_kernel_matches_plain(card, name):
+    """The kernel against its plain version from the same descriptors:
+    equal to the host's float for float, to the card's within DERM_ATOL;
+    one launch a round."""
+    from ltesniffer_tpu_torch.kernels import cb_derm
+    tab, rows, _b, n_out, _ = _derm_on(card, name, 3)
+    keep = []
+    out = torch.full((n_out,), float("nan"), device=card)
+    _h, desc = cb_derm.upload(tab, card, out, keep)
+    n0 = cb_derm.LAUNCHES["cb_derm"]
+    cb_derm.derm(rows, tab, desc, out)
+    torch.cuda.synchronize()
+    assert cb_derm.LAUNCHES["cb_derm"] == n0 + len(tab.rounds())
+    plain = torch.full((n_out,), float("nan"), device=card)
+    _h2, desc2 = cb_derm.upload(tab, card, plain, keep)
+    cb_derm.derm_plain(rows, desc2, tab, plain)
+    htab, hrows, _hb, _n, _ = _derm_on("cpu", name, 3)
+    host = torch.full((n_out,), float("nan"))
+    _h3, desc3 = cb_derm.upload(htab, "cpu", host, [])
+    cb_derm.derm(hrows, htab, desc3, host)
+    written = ~torch.isnan(host)
+    assert torch.equal(~torch.isnan(out.cpu()), written)
+    assert torch.equal(out.cpu()[written], host[written])
+    diff = (out - plain).abs()[written.to(card)]
+    print(f"\ncb_derm {name}: {tab.n_cb} code blocks, {len(tab.rounds())} "
+          f"rounds; vs the card's plain version {int((diff > 0).sum())} "
+          f"floats differ, max {float(diff.max()):.3g}")
+    assert float(diff.max()) <= DERM_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [40, 352, 560, 1824, 3904, 5120, 6144])
+def test_pack_entry_matches_plain(card, K):
+    """The turbo kernel's packing entry against the plain route (the
+    decoder's bits through `_crc_pack`) on the card and on the host, at
+    n_iter 2 and 12, into a buffer at an offset; one launch a call."""
+    from ltesniffer_tpu_torch.sniffer import pdsch_rx
+    rng = np.random.default_rng(K)
+    B = 2 if K >= 3904 else 9
+    sent, llr, prior = _coded(K, B, rng)
+    Wk = (K + 31) // 32
+    for n_iter in (2, 12):
+        for d in (llr, llr + prior):
+            dc = torch.from_numpy(d).to(card)
+            buf = torch.full((7 + B * (1 + Wk),), -3, dtype=torch.int64,
+                             device=card)
+            n0 = turbo_decode.LAUNCHES["turbo_decode_pack"]
+            rows = pdsch_rx._turbo_only_fn(K, n_iter)(dc, buf, 7)
+            torch.cuda.synchronize()
+            assert turbo_decode.LAUNCHES["turbo_decode_pack"] == n0 + 1
+            bits, _ = turbo.make_decoder(K, n_iter)(dc)
+            on_card = pdsch_rx._crc_pack(bits, K)
+            on_host = pdsch_rx._turbo_only_fn(K, n_iter)(torch.from_numpy(d))
+            assert torch.equal(rows.cpu(), on_card.cpu())
+            assert torch.equal(rows.cpu(), on_host)
+            assert (buf[:7] == -3).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["etm31", "loaded", "odd"])
+def test_dispatch_on_card_equals_host(card, name):
+    """The dispatch's code blocks on the card (one cb_derm launch a round,
+    one packing launch a K, one tb_finish launch) against the same on the
+    host: the fused rows bit for bit, the combined LLRs float for float,
+    the soft buffers alike; no plain de-rate-match on the card."""
+    from ltesniffer_tpu_torch.kernels import cb_derm, tb_finish
+    from ltesniffer_tpu_torch.sniffer import pdsch_rx
+    from ltesniffer_tpu_torch.testing import derm_batches, tb_rows
+    got = {}
+    for dev in (card, torch.device("cpu")):
+        rng = np.random.default_rng(5)
+        jobs = derm_batches.BATCHES[name]()
+        rows, live, n_re = derm_batches.batch(jobs, rng, device=dev)
+        bufs = derm_batches.stored(jobs, rng, device=dev)
+        n = (cb_derm.LAUNCHES["cb_derm"],
+             turbo_decode.LAUNCHES["turbo_decode_pack"],
+             turbo_decode.LAUNCHES["turbo_decode"],
+             tb_finish.LAUNCHES["tb_finish"], cb_derm.PLAIN_CUDA["cb_derm"])
+        pb = pdsch_rx._dispatch_code_blocks(rows, jobs, live, n_re, bufs, 2)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            rounds = len(pb.derm[0].rounds())
+            n_k = len(pb.group_rows)
+            assert (cb_derm.LAUNCHES["cb_derm"] - n[0],
+                    turbo_decode.LAUNCHES["turbo_decode_pack"] - n[1],
+                    turbo_decode.LAUNCHES["turbo_decode"] - n[2],
+                    tb_finish.LAUNCHES["tb_finish"] - n[3],
+                    cb_derm.PLAIN_CUDA["cb_derm"] - n[4]) == \
+                (rounds, n_k, n_k, 1, 0)
+        got[dev.type] = (pb.fused_dev.cpu(),
+                         {k: v.get().cpu() for k, v in pb.d_of.items()},
+                         {k: torch.as_tensor(pdsch_rx._buffer_value(v)).cpu()
+                          for k, v in bufs.items()},
+                         tb_rows.defined(pb.tb.out, pb.tb.table))
+    (fc, dc, bc, tc), (fh, dh, bh, th) = got["cuda"], got["cpu"]
+    assert torch.equal(fc, fh)
+    assert dc.keys() == dh.keys() and bc.keys() == bh.keys()
+    assert all(torch.equal(dc[k], dh[k]) for k in dh)
+    assert all(torch.equal(bc[k], bh[k]) for k in bh)
+    assert tc == th
+
+
+@pytest.mark.cuda
+def test_dispatch_code_blocks_do_not_synchronize(card):
+    """Once the maps are on the card, the dispatch's descriptor upload
+    and its launches make no synchronizing call, priors and all."""
+    import os
+    import warnings
+    from ltesniffer_tpu_torch.sniffer import pdsch_rx
+    from ltesniffer_tpu_torch.testing import derm_batches
+    rng = np.random.default_rng(2)
+    jobs = derm_batches.odd_jobs()
+    rows, live, n_re = derm_batches.batch(jobs, rng, device=card)
+    bufs = derm_batches.stored(jobs, rng, device=card)
+    pdsch_rx._dispatch_code_blocks(rows, jobs, live, n_re, dict(bufs), 2)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pb = pdsch_rx._dispatch_code_blocks(rows, jobs, live, n_re,
+                                                dict(bufs), 2)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert pb.derm[1].is_pinned()
+    port = os.path.dirname(pdsch_rx.__file__).rsplit(os.sep, 1)[0]
+    syncs = [(w.filename, w.lineno) for w in caught
+             if "synchroniz" in str(w.message)]
+    assert not [f for f in syncs if f[0].startswith(port)], syncs

@@ -408,7 +408,7 @@ def test_ratio_readers_with_nothing_escalated_read_zero():
 # the stream, so the host waits for all queued device work (PERF.md §7).
 HIDDEN_SYNCS = {
     ("ltesniffer_tpu_torch/sniffer/pdsch_rx.py", "_t"):
-        "the PDSCH finisher's row indices, E sizes and prior gathers",
+        "the escalation's gather of the failed code blocks' rows",
     ("ltesniffer_tpu_torch/sniffer/core.py", "_put_chunk"):
         "a batch's IQ words and scales, copied ahead",
     ("ltesniffer_tpu_torch/sniffer/core.py", "_phase1_chunk"):
@@ -437,11 +437,12 @@ def test_host_read_counter_is_honest_on_the_card(monkeypatch):
     """Every synchronizing call torch reports on a few loaded batches is a
     counted host read (at `prof.host_read`, as many as the counters'
     events) or a known hidden sync of HIDDEN_SYNCS; none comes from the
-    eq/demap's or the finish's descriptor upload, and `pdsch_rx._t` is
-    left to the finisher: two uploads a turbo call and the prior gathers."""
+    eq/demap's, the de-rate-match's or the finish's descriptor upload,
+    and none from `pdsch_rx._t` or `_gather_lazy_rows` inside the primary
+    DL dispatch: `_t` is left to the escalation's gathers."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from ltesniffer_tpu_torch.kernels import pdsch_eq, tb_finish
+    from ltesniffer_tpu_torch.kernels import cb_derm, pdsch_eq, tb_finish
     from ltesniffer_tpu_torch.sniffer import core, pdsch_rx
     from ltesniffer_tpu_torch.testing import loaded_cell
     n_sf = 160
@@ -451,12 +452,29 @@ def test_host_read_counter_is_honest_on_the_card(monkeypatch):
     torch.cuda.synchronize()
     prof.reset()
     t_calls = collections.Counter()      # callers of pdsch_rx._t
-    real_t = pdsch_rx._t
+    in_dispatch = collections.Counter()  # _t / gathers inside the dispatch
+    real_t, real_gather = pdsch_rx._t, pdsch_rx._gather_lazy_rows
+    real_dispatch = pdsch_rx.dispatch_grants_batch
+    inside = []
 
     def counted_t(*a, **k):
         t_calls[sys._getframe(1).f_code.co_name] += 1
+        in_dispatch["_t"] += bool(inside)
         return real_t(*a, **k)
+
+    def counted_gather(*a, **k):
+        in_dispatch["_gather_lazy_rows"] += bool(inside)
+        return real_gather(*a, **k)
+
+    def dispatch(*a, **k):
+        inside.append(1)
+        try:
+            return real_dispatch(*a, **k)
+        finally:
+            inside.pop()
     monkeypatch.setattr(pdsch_rx, "_t", counted_t)
+    monkeypatch.setattr(pdsch_rx, "_gather_lazy_rows", counted_gather)
+    monkeypatch.setattr(pdsch_rx, "dispatch_grants_batch", dispatch)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -491,20 +509,24 @@ def test_host_read_counter_is_honest_on_the_card(monkeypatch):
     # (a pinned buffer, non_blocking; `_t` above would hide it otherwise)
     assert tb_finish.LAUNCHES["tb_finish"] > 0
     assert not [k for k in hidden if k[0].endswith("kernels/tb_finish.py")]
-    # nor the eq/demap's (one pinned, non_blocking copy a dispatch), which
-    # leaves pdsch_rx._t's syncs to the finisher
+    # nor the eq/demap's (one pinned, non_blocking copy a dispatch)
     assert pdsch_eq.LAUNCHES["pdsch_eq_demap"] > 0
     assert not [k for k in hidden if k[0].endswith("kernels/pdsch_eq.py")]
-    # both make it through cplx.upload_pinned
+    # nor the de-rate-match's (one a dispatch, priors read by address)
+    assert cb_derm.LAUNCHES["cb_derm"] > 0
+    assert not [k for k in hidden if k[0].endswith("kernels/cb_derm.py")]
+    # all three make it through cplx.upload_pinned
     assert not [k for k in hidden if k[0].endswith("kernels/cplx.py")
                 and k[1] == "upload_pinned"]
-    n_turbo = prof.report()["pd_turbo_call"]["n"]
+    n_disp = prof.report()["pd_turbo_call"]["n"]
     n_t = hidden[("ltesniffer_tpu_torch/sniffer/pdsch_rx.py", "_t")]
     print(f"  pdsch_rx._t: {n_t} syncs, calls by caller {dict(t_calls)}, "
-          f"{n_turbo} turbo calls, {pdsch_eq.LAUNCHES['pdsch_eq_demap']} "
-          "eq/demap launches")
-    assert set(t_calls) <= {"dispatch_grants_batch", "_gather_lazy_rows"}
-    assert t_calls["dispatch_grants_batch"] == 2 * n_turbo
+          f"inside the primary dispatch {dict(in_dispatch)}; {n_disp} "
+          f"dispatches, {cb_derm.LAUNCHES['cb_derm']} de-rate-match "
+          f"launches, {pdsch_eq.LAUNCHES['pdsch_eq_demap']} eq/demap "
+          "launches")
+    assert in_dispatch["_t"] == in_dispatch["_gather_lazy_rows"] == 0
+    assert set(t_calls) <= {"_gather_lazy_rows"}
     assert n_t <= sum(t_calls.values())
 
 
