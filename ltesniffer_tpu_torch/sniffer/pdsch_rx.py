@@ -209,31 +209,41 @@ def decode_grant_mimo(grids, h, noise_var, b: int, cell: CellConfig,
     Both codewords' LLRs come out of one kernel launch in one buffer and
     to the host in one read; their code blocks are decoded together, one
     decoder call (and one read) per code-block size — each block decodes
-    on its own, so the bits are those of two separate decodes."""
+    on its own, so the bits are those of two separate decodes.
+
+    Traced as four child spans of the caller's (`pm_eqdemap`, `pm_derm`,
+    `pm_turbo`, `pm_finish`), one event of `pdsch_mimo_grant` a call and
+    one of `pdsch_mimo_cb` a turbo launch (its code blocks the total)."""
+    prof.count("pdsch_mimo_grant")
     dev = grids.device
-    n_re, n_pad, idx = _mimo_re_index(cell, sf_idx, cfi, prb_mask, dev)
-    ci = [pdsch_mod.scrambling_cinit(rnti, q, sf_idx, cell.n_id_cell)
-          for q in (0, 1)]
-    fn = _eq_demap_mimo_fn(cell, qms[0], qms[1], n_pad, tm, pmi)
-    gflat = grids[b].reshape(grids.shape[1], -1, 2)
-    hflat = h[b].reshape(h.shape[1], h.shape[2], -1, 2)
-    both = _host(fn(gflat, hflat, noise_var[b], idx, *ci), "mimo_llr")
+    with prof.span("pm_eqdemap"):
+        n_re, n_pad, idx = _mimo_re_index(cell, sf_idx, cfi, prb_mask, dev)
+        ci = [pdsch_mod.scrambling_cinit(rnti, q, sf_idx, cell.n_id_cell)
+              for q in (0, 1)]
+        fn = _eq_demap_mimo_fn(cell, qms[0], qms[1], n_pad, tm, pmi)
+        gflat = grids[b].reshape(grids.shape[1], -1, 2)
+        hflat = h[b].reshape(h.shape[1], h.shape[2], -1, 2)
+        both = _host(fn(gflat, hflat, noise_var[b], idx, *ci), "mimo_llr")
     n0 = n_pad * qms[0]
     cw = [both[:n0], both[n0:]]
-    segs = [_derm_cbs(cw[q][:n_re * qms[q]], tbss[q], qms[q], rvs[q], n_re,
-                      soft_buffers, harq_keys[q]) for q in (0, 1)]
-    bits = _decode_cbs([d for seg in segs if seg is not None
-                        for d in seg[1]], n_iter, dev, site="mimo_bits")
+    with prof.span("pm_derm"):
+        segs = [_derm_cbs(cw[q][:n_re * qms[q]], tbss[q], qms[q], rvs[q],
+                          n_re, soft_buffers, harq_keys[q]) for q in (0, 1)]
+    with prof.span("pm_turbo"):
+        bits = _decode_cbs([d for seg in segs if seg is not None
+                            for d in seg[1]], n_iter, dev, site="mimo_bits",
+                           launches="pdsch_mimo_cb")
     results = []
-    for q in (0, 1):
-        if segs[q] is None:
-            results.append(PdschResult(rnti, tbss[q], False, None, [], [],
-                                       n_re))
-            continue
-        seg, d_llrs = segs[q]
-        blocks, bits = bits[:seg.C], bits[seg.C:]
-        results.append(_finish_tb(seg, blocks, d_llrs, rnti, tbss[q], n_re,
-                                  soft_buffers, harq_keys[q]))
+    with prof.span("pm_finish"):
+        for q in (0, 1):
+            if segs[q] is None:
+                results.append(PdschResult(rnti, tbss[q], False, None, [],
+                                           [], n_re))
+                continue
+            seg, d_llrs = segs[q]
+            blocks, bits = bits[:seg.C], bits[seg.C:]
+            results.append(_finish_tb(seg, blocks, d_llrs, rnti, tbss[q],
+                                      n_re, soft_buffers, harq_keys[q]))
     return results
 
 
@@ -282,16 +292,19 @@ def _derm_cbs(llr, tbs, qm, rv, n_re, soft_buffers, harq_key):
     return seg, d_llrs
 
 
-def _decode_cbs(d_llrs, n_iter, device,
-                site: str = "grant_bits") -> List[np.ndarray]:
+def _decode_cbs(d_llrs, n_iter, device, site: str = "grant_bits",
+                launches: Optional[str] = None) -> List[np.ndarray]:
     """Turbo-decode (3, K+4) code blocks: one decoder call per code-block
     size on `device`; returns each block's (K,) hard bits on the host, one
-    read (counted at `site`) per size."""
+    read (counted at `site`) per size.  With `launches`, each call is one
+    event of that counter, its code blocks the total."""
     by_k = {}
     for c, d in enumerate(d_llrs):
         by_k.setdefault(d.shape[1] - 4, []).append(c)
     bits_per_cb = [None] * len(d_llrs)
     for K, cis in by_k.items():
+        if launches is not None:
+            prof.count(launches, len(cis))
         batch = torch.from_numpy(np.stack([d_llrs[c] for c in cis])).to(device)
         bits, _ = kturbo.make_decoder(K, n_iter)(batch)
         bits = _host(bits, site)
